@@ -6,23 +6,48 @@ Runs from the root of a checkout, needs one card, imports nothing of JAX.
 Phases (any failure raises, and the script exits non-zero):
 
 1. Card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name.
-2. Build: the ``gs_phase`` kernel from ``emg3d_tpu_torch/csrc`` with nvcc.
-3. Kernel against its plain PyTorch version on the card, on every level
-   shape of the 128^3 hierarchy and a stretched odd shape, all colors and
-   one full sweep; complex128 to 1e-12 and complex64 to 1e-5 norm-wise
-   (real float64/float32 too); per-phase times at 128^3 and 64^3.
-4. The main path: the BASELINE recipe (1 Ohm m fullspace, x-directed
-   dipole at the origin, 1 Hz, 50 m cells, plain F-cycles to tol 1e-6) at
-   128^3 and 256^3 through ``emg3d_tpu_torch.solve(..., device='cuda')``
-   in complex64, checking convergence and that every smoothing phase went
-   through the kernel.
-5. A 32^3 stretched anisotropic solve in complex128 on the card (kernel)
-   and on the CPU (plain version): same cycles, fields to 1e-10.
+2. Build: both kernels from ``emg3d_tpu_torch/csrc`` (``gs_phase`` and
+   ``line_phase``), one ``nvcc`` each, started together; nvcc seconds
+   and the ``-Xptxas -v`` registers and spills of every instantiation.
+3. The level shapes of the main paths (6 below), read from the
+   hierarchies the solver builds for them: every level whose effective
+   line-relaxation direction is 0 runs ``gs_phase``, every other level
+   ``line_phase`` along the axes that direction names.
+4. ``gs_phase`` against its plain PyTorch version on the card, on every
+   ``gs_phase`` shape of the main paths and a stretched odd shape, all
+   colors and one full sweep; complex128 to 1e-12 and complex64 to 1e-5
+   norm-wise on the changed entries (real float64/float32 too); per-phase
+   times at 128^3 and 64^3.
+5. ``line_phase`` against its plain PyTorch version on the card: axes 0,
+   1 and 2 on every level shape of the default solve's three 128^3
+   semicoarsening hierarchies (sc_dir 1, 2, 3) and on (37, 50, 29), and
+   every other ``line_phase`` shape of the main paths along the axes the
+   path relaxes there; every color and one forward-plus-reverse sweep,
+   with the same tolerances (float64/float32 once, on the odd shape);
+   per-phase times at 128^3 and 64^3.
+6. The main paths (``emg3d_tpu_torch.northstar``), each driven through
+   ``emg3d_tpu_torch.solve`` with both launch counts set to 0 just
+   before it and read just after:
+   a. the BASELINE recipe (1 Ohm m fullspace, x-directed dipole at the
+      origin, 1 Hz, 50 m cells, plain F-cycles to tol 1e-6) at 128^3;
+   b. the default solver (MG-preconditioned BiCGSTAB, semicoarsening
+      cycling 1-2-3, line relaxation cycling 4-5-6) on the 128^3
+      triaxial fullspace (50 m cells, rho 1/2/5 Ohm m, x-dipole at the
+      origin, 1 Hz), with no device and no solver options;
+   c. semicoarsening and line-relaxation F-cycles on the 128 x 128 x 64
+      marine model (water, stretched sediments, resistive target).
+   Each must converge below 1e-6 through the kernels of its path, with
+   no call of a plain version on CUDA.
+7. Card against CPU in complex128: the default solve of a 16^3
+   stretched triaxial grid (same it_ssl, it_mg and exit message, fields
+   to 1e-10) and plain F-cycles on a 32^3 stretched grid (same cycles,
+   fields to 1e-10).
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+The last three lines of standard output are the card's name and power
+limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -33,10 +58,29 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-GS_SOURCE = "emg3d_tpu_torch/csrc/gs_phase.cu"
-GS_REPLACES = ("emg3d_tpu/ops/pallas_gs.py:452 (gauss_seidel_phase_pallas); "
-               "emg3d_tpu/ops/pallas_gs.py:663 "
-               "(gauss_seidel_phase_pallas_tiled)")
+KERNELS = {
+    "gs_phase": {
+        "source": "emg3d_tpu_torch/csrc/gs_phase.cu",
+        "replaces": ("emg3d_tpu/ops/pallas_gs.py:452 "
+                     "(gauss_seidel_phase_pallas); "
+                     "emg3d_tpu/ops/pallas_gs.py:663 "
+                     "(gauss_seidel_phase_pallas_tiled)")},
+    "line_phase": {
+        "source": "emg3d_tpu_torch/csrc/line_phase.cu",
+        "replaces": ("none (XLA lax.scan line phase, "
+                     "emg3d_tpu/ops/smoothers.py:791-850)")},
+}
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory, and float32 outside the tensor cores (complex64 arithmetic).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# Real operations per phase node (gs_phase: assemble and eliminate the
+# 6x6 complex system) and per line group (line_phase: assemble the 5x5
+# blocks, eliminate, invert C_g, substitute back), counted from the
+# kernels' arithmetic and rounded up.
+GS_FLOPS_PER_NODE = 1200
+LINE_FLOPS_PER_GROUP = 2000
 
 
 def log(*args):
@@ -55,12 +99,64 @@ def rel_err(a, b):
                  / torch.linalg.vector_norm(b))
 
 
-def hierarchy_shapes(n):
-    shapes = [(n, n, n)]
-    while n > 2:
-        n //= 2
-        shapes.append((n, n, n))
-    return shapes
+def path_levels(problem, options):
+    """Where a solve of ``problem`` with ``options`` runs each kernel.
+
+    Read from the hierarchies the solver builds (``solver._Hierarchies``,
+    built here on the CPU; only each level's shape and effective
+    line-relaxation direction are used), for every (sc_dir, lr_dir) pair
+    the solve cycles through.  Returns (every level shape, the shapes of
+    ``gs_phase``, {shape: axes} of ``line_phase``).
+    """
+    from emg3d_tpu_torch import models, solver
+
+    model, sfield = problem
+    opts = dict(sslsolver=True, semicoarsening=True, linerelaxation=True)
+    opts.update(options)
+    if opts.pop("plain", False):
+        opts = {k: (False if v is True else v) for k, v in opts.items()}
+    var = solver.MGParameters(verb=0, shape_cells=model.shape,
+                              device="cpu", **opts)
+    hier = solver._Hierarchies(models.VolumeModel(model, sfield), var)
+    sc, lr = var.raw_sc_cycle, var.raw_lr_cycle
+    shapes, gs, line = set(), set(), {}
+    for k in range(int(np.lcm(len(sc), len(lr)))):
+        meta, _ = hier.get(sc[k % len(sc)], lr[k % len(lr)])
+        for shape, c_lr_dir, _ in meta:
+            shapes.add(shape)
+            if c_lr_dir == 0:
+                gs.add(shape)
+            for axis, dirs in solver.LINE_AXES:
+                if c_lr_dir in dirs:
+                    line.setdefault(shape, set()).add(axis)
+    return shapes, gs, line
+
+
+def phase_path_levels(problems):
+    """The kernels' shapes on the main paths: ({shape} of ``gs_phase``,
+    {shape: axes} of ``line_phase``) to hold against the plain versions.
+    """
+    from emg3d_tpu_torch import northstar
+
+    odd = (37, 50, 29)
+    gs, line = {odd}, {odd: {0, 1, 2}}
+    for case, problem in problems.items():
+        shapes, p_gs, p_line = path_levels(
+            problem, northstar.SOLVE_OPTIONS[case])
+        log(f"[levels] {case} {problem[0].shape}: gs_phase on "
+            f"{sorted(p_gs)}; line_phase on "
+            f"{sorted((s, sorted(a)) for s, a in p_line.items())}")
+        gs |= p_gs
+        for shape, axes in p_line.items():
+            line.setdefault(shape, set()).update(axes)
+        if case == "triaxial":
+            # Every level shape of the default solve: all three axes.
+            for shape in shapes:
+                line.setdefault(shape, set()).update((0, 1, 2))
+    check(gs and line, "no kernel on the main paths")
+    bysize = dict(key=lambda s: (-int(np.prod(s)), s))
+    return (sorted(gs, **bysize),
+            {s: sorted(line[s]) for s in sorted(line, **bysize)})
 
 
 def operands(shape, dtype, rdt, seed):
@@ -81,7 +177,7 @@ def operands(shape, dtype, rdt, seed):
         return dev(a, dtype)
 
     # eta is scaled so that its diagonal term and the curl-curl terms
-    # (~4 zeta / h^2) are of one size: neither dominates the 6x6 systems.
+    # (~4 zeta / h^2) are of one size: neither dominates the systems.
     e = [val(s) for s in edges]
     s = [val(s) for s in edges]
     eta = [val(cell, -5.0, -1.0, (1.0, 5.0)) for _ in range(3)]
@@ -105,6 +201,59 @@ def updated_err(out, ref, base):
     return rel, mabs
 
 
+def bound_ms(nbytes, flops):
+    """(least ms of the card for the work, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gs_phase_work(shape, color, item, ritem):
+    """(bytes, flops) one point phase must move and do.
+
+    Counted once each: the neighbouring edges the phase nodes read (12
+    per node, shared between nodes), the 6 edges per node written and
+    their sources read, the 8 cells around each node (3 eta of ``item``
+    bytes, zeta of ``ritem``), and the widths.
+    """
+    nx, ny, nz = (len(range(1 + p, n, 2)) for n, p in zip(shape, color))
+    nodes = nx * ny * nz
+    read = (2 * nx * ((ny + 1) * nz + ny * (nz + 1))
+            + 2 * ny * ((nx + 1) * nz + nx * (nz + 1))
+            + 2 * nz * ((nx + 1) * ny + nx * (ny + 1)))
+    cells = 8 * nodes
+    nbytes = (item * (read + 2 * 6 * nodes + 3 * cells)
+              + ritem * (cells + sum(shape)))
+    return nbytes, GS_FLOPS_PER_NODE * nodes
+
+
+def line_phase_work(shape, color, axis, item, ritem):
+    """(bytes, flops, scratch bytes) of one line phase.
+
+    Counted once each, in the frame of the lines (x along the line): the
+    neighbouring edges the lines read, the 5 NX - 4 unknowns per line
+    written and their sources read, the cells around the lines (3 eta
+    of ``item`` bytes, zeta of ``ritem``) and the widths.  The block-
+    Thomas scratch (30 values per group, written and read back) is
+    returned apart.
+    """
+    from emg3d_tpu_torch.ops import line_phase
+
+    NX, NY, NZ = (shape[i] for i in line_phase.FRAMES[axis])
+    ncy, ncz = (NY - color[0]) // 2, (NZ - color[1]) // 2
+    lines = ncy * ncz
+    written = lines * (5 * NX - 4)
+    read = (NX * ((ncy + 1) * ncz + ncy * (ncz + 1))
+            + (NX - 1) * 2 * ncy * (ncz + 1)
+            + (NX - 1) * (ncy + 1) * 2 * ncz)
+    cells = NX * 2 * ncy * 2 * ncz
+    nbytes = (item * (read + 2 * written + 3 * cells)
+              + ritem * (cells + NX + NY + NZ))
+    scratch = 2 * item * line_phase.SCRATCH_VALUES * lines * (NX - 1)
+    return nbytes, LINE_FLOPS_PER_GROUP * lines * NX, scratch
+
+
 def phase_card():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -125,10 +274,14 @@ def phase_build():
     pkg = pathlib.Path(emg3d_tpu_torch.__file__).resolve().parent
     check(pkg.parent == ROOT, f"emg3d_tpu_torch imported from {pkg}")
     t0 = time.perf_counter()
-    _build.load("gs_phase")
-    log(f"[build] gs_phase.cu: nvcc {_build.BUILD_SECONDS['gs_phase']:.2f} s"
-        f" (load incl. {time.perf_counter() - t0:.2f} s), flags "
-        f"{' '.join(_build.NVCC_FLAGS)}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
+    log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}"
+        f" s wall, flags {' '.join(_build.NVCC_FLAGS)}")
+    for name in KERNELS:
+        log(f"[build] {name}.cu: nvcc "
+            f"{_build.BUILD_SECONDS.get(name, 0.0):.2f} s; ptxas:\n"
+            f"{_build.PTXAS_INFO.get(name, '(reused build)')}")
 
 
 def time_phase(fn, args, color, reps):
@@ -162,14 +315,14 @@ def time_phase(fn, args, color, reps):
     return event_ms, device_ms
 
 
-def phase_kernel_vs_plain():
+def phase_gs_vs_plain(shapes):
     from emg3d_tpu_torch.ops import smoothers
 
     plain = smoothers._gauss_seidel_phase_torch
     kernel = smoothers.gauss_seidel_phase
     cases = [(torch.complex128, torch.float64, 1e-12),
              (torch.complex64, torch.float32, 1e-5)]
-    shapes = hierarchy_shapes(128) + [(37, 50, 29)]
+    log(f"[gs_phase] {len(shapes)} shapes: {shapes}")
     worst = {}
     max_abs_c64 = 0.0
     for shape in shapes:
@@ -196,7 +349,7 @@ def phase_kernel_vs_plain():
             torch.cuda.synchronize()
             err, _ = updated_err(out, ref, base)
             check(err <= tol, (shape, dtype, "sweep", err))
-        log(f"[kernel] {shape}: all colors + sweep agree "
+        log(f"[gs_phase] {shape}: all colors + sweep agree "
             f"(worst so far c128 {worst[torch.complex128]:.2e}, "
             f"c64 {worst[torch.complex64]:.2e})")
 
@@ -211,7 +364,7 @@ def phase_kernel_vs_plain():
             torch.cuda.synchronize()
             err, _ = updated_err(out, ref, base)
             check(err <= tol, (dtype, color, err))
-    log("[kernel] float64/float32 (37, 50, 29): all colors agree")
+    log("[gs_phase] float64/float32 (37, 50, 29): all colors agree")
 
     times = {}
     for n in (128, 64):
@@ -219,106 +372,229 @@ def phase_kernel_vs_plain():
         k_ev, k_dev = time_phase(kernel, args, (0, 0, 0), 50)
         p_ev, p_dev = time_phase(plain, args, (0, 0, 0), 10)
         times[n] = (k_dev or k_ev, p_dev or p_ev)
-        log(f"[kernel] phase time {n}^3 complex64 (ms per phase): kernel "
+        nbytes, flops = gs_phase_work((n, n, n), (0, 0, 0), 8, 4)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"[gs_phase] phase time {n}^3 complex64 (ms per phase): kernel "
             f"{k_ev!r} on the stream, {k_dev!r} device; plain {p_ev!r} on "
-            f"the stream, {p_dev!r} device")
-    return max_abs_c64, times
+            f"the stream, {p_dev!r} device; bound {b_ms!r} ({b_by}: "
+            f"{nbytes} B, {flops} flop)")
+        if n == 128:
+            bound = (b_ms, b_by)
+    return max_abs_c64, times[128], bound
 
 
-def baseline_problem(n):
+def _line_compare(plain, kernel, base, steps, tol, what):
+    """Run ``steps`` ((p1, p2, axis) phases) with the plain version and
+    the kernel on copies of the fields; check the changed entries."""
+    ref = [t.clone() for t in base[:3]] + base[3:]
+    out = [t.clone() for t in base[:3]] + base[3:]
+    for step in steps:
+        plain(*ref, *step)
+        kernel(*out, *step)
+    torch.cuda.synchronize()
+    err, mabs = updated_err(out, ref, base)
+    check(err <= tol, (what, err))
+    # Entries no phase changed stay bit-identical.
+    for a, b, c in zip(out[:3], ref[:3], base[:3]):
+        keep = b == c
+        check(torch.equal(a[keep], c[keep]), (what, "untouched entries"))
+    return err, mabs
+
+
+def phase_line_vs_plain(shapes):
+    """``shapes``: {shape: the axes to check there}."""
+    from emg3d_tpu_torch.ops import smoothers
+
+    plain = smoothers._line_relax_phase_torch
+    kernel = smoothers.gauss_seidel_line_phase
+    colors = smoothers.line_phase_colors
+    cases = [(torch.complex128, torch.float64, 1e-12),
+             (torch.complex64, torch.float32, 1e-5)]
+    log(f"[line_phase] {len(shapes)} shapes: "
+        f"{[(s, a) for s, a in shapes.items()]}")
+    worst = {}
+    max_abs_c64 = 0.0
+    t0 = time.perf_counter()
+    for shape, axes in shapes.items():
+        for dtype, rdt, tol in cases:
+            base = operands(shape, dtype, rdt, seed=sum(shape) + 1)
+            for axis in axes:
+                for color in colors(shape, axis, False):
+                    err, mabs = _line_compare(
+                        plain, kernel, base, [(*color, axis)], tol,
+                        (shape, dtype, axis, color))
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    if dtype == torch.complex64:
+                        max_abs_c64 = max(max_abs_c64, mabs)
+                sweep = [(*c, axis) for rev in (False, True)
+                         for c in colors(shape, axis, rev)]
+                err, _ = _line_compare(plain, kernel, base, sweep, tol,
+                                       (shape, dtype, axis, "sweep"))
+                worst[dtype] = max(worst[dtype], err)
+        log(f"[line_phase] {shape} axes {axes}: all colors and sweeps agree "
+            f"(worst so far c128 {worst[torch.complex128]:.2e}, "
+            f"c64 {worst[torch.complex64]:.2e}; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+    # Real (Laplace-domain) instantiations on the odd shape.
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        base = operands((37, 50, 29), dtype, dtype, seed=9)
+        for axis in (0, 1, 2):
+            for color in colors((37, 50, 29), axis, False):
+                _line_compare(plain, kernel, base, [(*color, axis)], tol,
+                              (dtype, axis, color))
+    log("[line_phase] float64/float32 (37, 50, 29): all axes and colors "
+        "agree")
+
+    times, bound = {}, None
+    for n in (128, 64):
+        args = operands((n, n, n), torch.complex64, torch.float32, seed=n)
+        for axis in (0, 1, 2):
+            k_ev, k_dev = time_phase(kernel, args, (0, 0, axis), 50)
+            p_ev, p_dev = time_phase(plain, args, (0, 0, axis), 3)
+            nbytes, flops, scratch = line_phase_work(
+                (n, n, n), (0, 0), axis, 8, 4)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            log(f"[line_phase] phase time {n}^3 complex64 axis {axis} (ms "
+                f"per phase): kernel {k_ev!r} on the stream, {k_dev!r} "
+                f"device; plain {p_ev!r} on the stream, {p_dev!r} device; "
+                f"bound {b_ms!r} ({b_by}: {nbytes} B, {flops} flop; "
+                f"scratch apart {scratch} B)")
+            if n == 128 and axis == 0:
+                times = (k_dev or k_ev, p_dev or p_ev)
+                bound = (b_ms, b_by)
+    return max_abs_c64, times, bound
+
+
+def drive(label, problem, kernels, **kw):
+    """Solve ``problem`` through ``emg3d_tpu_torch.solve`` with every
+    launch count set to 0 just before and read just after; check that it
+    converged through each kernel of ``kernels`` and called no plain
+    version on CUDA.  Returns {kernel: launches}."""
+    from emg3d_tpu_torch import solve
+    from emg3d_tpu_torch.ops import gs_phase, line_phase
+
+    mods = {"gs_phase": gs_phase, "line_phase": line_phase}
+    model, sfield = problem
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    efield, info = solve(model, sfield, return_info=True, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: (m.LAUNCHES, m.PLAIN_CALLS_ON_CUDA)
+              for k, m in mods.items()}
+    cells = int(np.prod(model.shape))
+    field = np.asarray(efield.field)
+    log(f"[solve] {label} {model.shape}: {dt!r} s, {cells / dt:.0f} "
+        f"cells/s, it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, "
+        f"rel_error {info['rel_error']!r}, {info['exit_message']}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"launches {({k: c[0] for k, c in counts.items()})}, plain calls "
+        f"on cuda {({k: c[1] for k, c in counts.items()})}")
+    check(info['exit'] == 0, (label, info['exit_message']))
+    check(info['rel_error'] < 1e-6, (label, info['rel_error']))
+    for name in kernels:
+        check(counts[name][0] > 0, (label, name, "not launched"))
+    check(all(c[1] == 0 for c in counts.values()), (label, counts))
+    check(field.shape == (sfield.field.size,))
+    check(np.all(np.isfinite(field)) and np.abs(field).max() > 0)
+    return {k: c[0] for k, c in counts.items()}
+
+
+def main_problems():
+    """The main paths' problems: {case: (model, sfield)}."""
+    from emg3d_tpu_torch import northstar
+
+    return {"baseline": northstar.baseline_problem(128),
+            "triaxial": northstar.triaxial_problem(128),
+            "marine": northstar.marine_problem(128)}
+
+
+def phase_main_paths(problems):
+    from emg3d_tpu_torch import northstar, solve
+
+    opts = northstar.SOLVE_OPTIONS
+    # Warm-up of both paths at a small size (first-call costs).
+    solve(*northstar.baseline_problem(32), tol=1e-6, **opts["baseline"])
+    solve(*northstar.triaxial_problem(32), tol=1e-6, **opts["triaxial"])
+    plain = drive("BASELINE plain F-cycles", problems["baseline"],
+                  ["gs_phase"], tol=1e-6, **opts["baseline"])
+    check(plain["line_phase"] == 0, plain)
+    default = drive("triaxial default solver", problems["triaxial"],
+                    ["gs_phase", "line_phase"], tol=1e-6,
+                    **opts["triaxial"])
+    marine = drive("marine sc+lr F-cycles", problems["marine"],
+                   ["line_phase"], tol=1e-6, **opts["marine"])
+    return {"baseline_plain_128": plain, "triaxial_default_128": default,
+            "marine_sclr_128x128x64": marine}
+
+
+def stretched_triaxial(n, seed):
     from emg3d_tpu_torch import Model, TensorMesh, get_source_field
 
-    h = np.full(n, 50.0)
-    grid = TensorMesh([h, h, h], origin=(-n * 25.0,) * 3)
-    model = Model(grid, property_x=1.0)
-    sfield = get_source_field(grid, source=(0., 0., 0., 0., 0.),
-                              frequency=1.0)
-    return model, sfield
-
-
-def solve_baseline(model, sfield):
-    from emg3d_tpu_torch import solve
-
-    return solve(model, sfield, plain=True, cycle='F', tol=1e-6, maxit=50,
-                 return_info=True, device='cuda')
-
-
-def phase_main_path():
-    from emg3d_tpu_torch.ops import gs_phase
-
-    launches = None
-    for n in (128, 256):
-        model, sfield = baseline_problem(n)
-        if n == 128:
-            solve_baseline(model, sfield)            # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        gs_phase.reset_counts()
-        t0 = time.perf_counter()
-        efield, info = solve_baseline(model, sfield)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n_launch, n_plain = gs_phase.LAUNCHES, gs_phase.PLAIN_CALLS_ON_CUDA
-        if n == 128:
-            launches = n_launch
-        errs = info['error_at_cycle']
-        factor = (errs[-1] / errs[0]) ** (1.0 / max(info['it_mg'], 1))
-        field = np.asarray(efield.field)
-        log(f"[solve] {n}^3 BASELINE complex64: {dt:.3f} s, "
-            f"{n ** 3 / dt:.0f} cells/s, it_mg {info['it_mg']}, rel_error "
-            f"{info['rel_error']:.3e}, mean reduction/cycle {factor:.3f}, "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
-            f"gs_phase launches {n_launch}, plain calls on cuda {n_plain}")
-        check(info['exit'] == 0, info['exit_message'])
-        check(info['it_mg'] <= 8, info['it_mg'])
-        check(info['rel_error'] < 1e-6, info['rel_error'])
-        check(n_launch > 0 and n_plain == 0, (n_launch, n_plain))
-        check(field.shape == (sfield.field.size,))
-        check(np.all(np.isfinite(field)) and np.abs(field).max() > 0)
-    return launches
-
-
-def phase_card_vs_cpu():
-    from emg3d_tpu_torch import Model, TensorMesh, get_source_field, solve
-
-    rng = np.random.default_rng(32)
-    h = [rng.uniform(40.0, 120.0, 32) for _ in range(3)]
-    grid = TensorMesh(h, origin=(-1000.0, -1200.0, -900.0))
+    rng = np.random.default_rng(seed)
+    h = [rng.uniform(40.0, 120.0, n) for _ in range(3)]
+    # Centred: the source stays well inside, off the PEC boundary edges.
+    grid = TensorMesh(h, origin=tuple(-0.5 * x.sum() for x in h))
     shape = grid.shape_cells
     model = Model(grid, property_x=rng.uniform(1, 3, shape),
                   property_y=rng.uniform(1, 4, shape),
                   property_z=rng.uniform(2, 6, shape),
                   mapping='Resistivity')
     sfield = get_source_field(grid, (0., 0., 0., 20., 10.), 0.77)
-    kw = dict(plain=True, cycle='F', tol=1e-6, return_info=True,
-              dtype=torch.complex128)
-    t0 = time.perf_counter()
-    ef_gpu, inf_gpu = solve(model, sfield, device='cuda', **kw)
-    t1 = time.perf_counter()
-    ef_cpu, inf_cpu = solve(model, sfield, device='cpu', **kw)
-    t2 = time.perf_counter()
-    a = torch.from_numpy(np.asarray(ef_gpu.field))
-    b = torch.from_numpy(np.asarray(ef_cpu.field))
-    err = rel_err(a, b)
-    log(f"[parity] 32^3 stretched triaxial complex128: card it_mg "
-        f"{inf_gpu['it_mg']} ({t1 - t0:.2f} s), cpu it_mg "
-        f"{inf_cpu['it_mg']} ({t2 - t1:.2f} s), field rel diff {err:.2e}")
-    check(inf_gpu['exit'] == 0 and inf_cpu['exit'] == 0)
-    check(inf_gpu['it_mg'] == inf_cpu['it_mg'])
-    check(err <= 1e-10, err)
+    return model, sfield
+
+
+def phase_card_vs_cpu():
+    from emg3d_tpu_torch import solve
+
+    for label, n, seed, kw in (
+            ("default solver", 16, 16, {}),
+            ("plain F-cycles", 32, 32, dict(plain=True, cycle='F'))):
+        model, sfield = stretched_triaxial(n, seed)
+        kw = dict(kw, tol=1e-6, return_info=True, dtype=torch.complex128)
+        t0 = time.perf_counter()
+        ef_gpu, inf_gpu = solve(model, sfield, device='cuda', **kw)
+        t1 = time.perf_counter()
+        ef_cpu, inf_cpu = solve(model, sfield, device='cpu', **kw)
+        t2 = time.perf_counter()
+        err = rel_err(torch.from_numpy(np.asarray(ef_gpu.field)),
+                      torch.from_numpy(np.asarray(ef_cpu.field)))
+        log(f"[parity] {n}^3 stretched triaxial complex128, {label}: card "
+            f"it_ssl {inf_gpu['it_ssl']} it_mg {inf_gpu['it_mg']} "
+            f"({t1 - t0:.2f} s), cpu it_ssl {inf_cpu['it_ssl']} it_mg "
+            f"{inf_cpu['it_mg']} ({t2 - t1:.2f} s), field rel diff "
+            f"{err:.2e}")
+        check(inf_gpu['exit'] == 0 and inf_cpu['exit'] == 0, label)
+        check(inf_gpu['exit_message'] == inf_cpu['exit_message'], label)
+        check(inf_gpu['it_mg'] == inf_cpu['it_mg'], label)
+        check(inf_gpu['it_ssl'] == inf_cpu['it_ssl'], label)
+        check(err <= 1e-10, (label, err))
 
 
 def main():
     smi, name = phase_card()
     phase_build()
-    max_abs, times = phase_kernel_vs_plain()
-    launches = phase_main_path()
+    problems = main_problems()
+    gs_shapes, line_shapes = phase_path_levels(problems)
+    gs_abs, gs_times, gs_bound = phase_gs_vs_plain(gs_shapes)
+    ln_abs, ln_times, ln_bound = phase_line_vs_plain(line_shapes)
+    paths = phase_main_paths(problems)
     phase_card_vs_cpu()
-    record = {"kernels": [{
-        "name": "gs_phase", "route": "cuda", "source": GS_SOURCE,
-        "replaces": GS_REPLACES, "launches": launches,
-        "max_abs_err": max_abs, "ms": times[128][0],
-        "plain_ms": times[128][1]}]}
+    measured = {"gs_phase": (gs_abs, gs_times, gs_bound),
+                "line_phase": (ln_abs, ln_times, ln_bound)}
+    record = {"kernels": [dict(
+        name=k, route="cuda", source=KERNELS[k]["source"],
+        replaces=KERNELS[k]["replaces"],
+        launches=paths["triaxial_default_128"][k],
+        max_abs_err=measured[k][0], ms=measured[k][1][0],
+        plain_ms=measured[k][1][1], bound_ms=measured[k][2][0],
+        bound_by=measured[k][2][1], library_ms=None,
+        launches_by_path={p: c[k] for p, c in paths.items()})
+        for k in KERNELS]}
     log(f"card: {smi}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

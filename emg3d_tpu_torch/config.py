@@ -23,16 +23,19 @@ __all__ = ["resolve_device", "working_dtypes", "solve_dtype"]
 
 
 def resolve_device(device=None):
-    """The ``torch.device`` of a solve (default: CPU).
+    """The ``torch.device`` of a solve (default: the CUDA card).
 
-    Raises if CUDA is asked for on a host without a card: nothing falls
-    back to the CPU.
+    ``device=None`` means ``cuda``: the port runs on the card unless the
+    caller asks for the CPU (``device='cpu'``, as the tests do).  Asking
+    for CUDA, or giving no device, on a host without a card raises:
+    nothing falls back to the CPU.
     """
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device={device} requested, but torch.cuda.is_available() is "
-            "False.")
+            f"device={device} requested (no device means the card), but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU.")
     return device
 
 

@@ -5,10 +5,11 @@ CUDA card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Elsewhere every test skips (the kernels have no CPU mode).  The kernel is
-held against its plain PyTorch version on the same card, norm-wise per
-output array: complex128/float64 to 1e-12 (same arithmetic, another
-order and FMA contraction), complex64/float32 to 1e-5.
+Elsewhere every test skips (the kernels have no CPU mode).  Each kernel
+(``gs_phase``, ``line_phase``) is held against its plain PyTorch version
+on the same card, norm-wise per output array on the entries the phase
+changed: complex128/float64 to 1e-12 (same arithmetic, another order and
+FMA contraction), complex64/float32 to 1e-5.
 """
 
 import itertools
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from emg3d_tpu_torch.ops import gs_phase, smoothers
+from emg3d_tpu_torch.ops import gs_phase, line_phase, smoothers
 
 COLORS = list(itertools.product((0, 1), repeat=3))
 DTYPES = [(torch.complex128, torch.float64, 1e-12),
@@ -29,7 +30,7 @@ DTYPES = [(torch.complex128, torch.float64, 1e-12),
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card: the gs_phase kernel has no CPU mode')
+        pytest.skip('needs a CUDA card: the CUDA kernels have no CPU mode')
     return torch.device('cuda')
 
 
@@ -114,3 +115,47 @@ def test_wrapper_rejects_bad_input(cuda):
                      (non_contig, ValueError), (cpu, ValueError)):
         with pytest.raises(exc):
             gs_phase.gauss_seidel_phase_cuda(*bad, 0, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,rdt,tol', DTYPES[:2])
+@pytest.mark.parametrize('shape', [(9, 6, 7), (2, 5, 4), (16, 3, 2)])
+@pytest.mark.parametrize('axis', [0, 1, 2])
+def test_line_kernel_equals_plain(cuda, dtype, rdt, tol, shape, axis):
+    base = _operands(shape, dtype, rdt, cuda)
+    for color in smoothers.line_phase_colors(shape, axis, False):
+        ref = [t.clone() for t in base]
+        out = [t.clone() for t in base]
+        smoothers._line_relax_phase_torch(*ref, *color, axis)
+        launches = line_phase.LAUNCHES
+        smoothers.gauss_seidel_line_phase(*out, *color, axis)
+        torch.cuda.synchronize()
+        assert line_phase.LAUNCHES == launches + 1
+        assert any(not torch.equal(b, c) for b, c in zip(ref, base))
+        err = _rel_err(out, ref, base)
+        assert err <= tol, (color, err)
+        # Entries the phase leaves alone stay bit-identical.
+        for a, b, c in zip(out[:3], ref[:3], base[:3]):
+            keep = b == c
+            assert torch.equal(a[keep], c[keep])
+
+
+@pytest.mark.cuda
+def test_line_wrapper_rejects_bad_input(cuda):
+    args = _operands((5, 4, 3), torch.complex64, torch.float32, cuda)
+    bad_dtype = list(args)
+    bad_dtype[4] = bad_dtype[4].to(torch.complex128)
+    bad_shape = list(args)
+    bad_shape[7] = bad_shape[7][:, :, :2]
+    non_contig = list(args)
+    non_contig[0] = non_contig[0].transpose(0, 2).contiguous().transpose(0, 2)
+    cpu = list(args)
+    cpu[9] = cpu[9].cpu()
+    launches = line_phase.LAUNCHES
+    for bad, exc in ((bad_dtype, TypeError), (bad_shape, ValueError),
+                     (non_contig, ValueError), (cpu, ValueError)):
+        with pytest.raises(exc):
+            line_phase.gauss_seidel_line_phase_cuda(*bad, 0, 0, 1)
+    with pytest.raises(ValueError, match='axis'):
+        line_phase.gauss_seidel_line_phase_cuda(*args, 0, 0, 3)
+    assert line_phase.LAUNCHES == launches

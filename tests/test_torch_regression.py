@@ -1,8 +1,10 @@
 """PyTorch port against the frozen fixtures of tests/data/regression.npz.
 
-The same plain-multigrid cases as tests/test_regression.py (VTI F/W/V
-cycles and the Laplace-domain solve), computed by the port alone
-(complex128/float64 on the CPU): same cycle counts, fields to rtol 1e-10.
+The same cases as tests/test_regression.py, computed by the port alone
+(complex128/float64 on the CPU, ``device='cpu'``): plain multigrid (VTI
+F/W/V cycles, the Laplace-domain solve) and semicoarsening or line
+relaxation cycling on a heterogeneous model, fields to rtol 1e-10; the
+MG-preconditioned BiCGSTAB, fields to rtol 1e-8.  Same cycle counts.
 """
 
 import os
@@ -46,9 +48,38 @@ def test_vti_cycles(data, cycle):
     model, sfield = vti_setup()
     efield, info = solver.solve(
         model, sfield, plain=True, cycle=cycle, tol=1e-6,
-        return_info=True, verb=0)
+        return_info=True, verb=0, device='cpu')
     assert info['it_mg'] == data[f'vti_{cycle}_it']
     assert_allclose(efield.field, data[f'vti_{cycle}_field'], rtol=1e-10,
+                    atol=1e-18)
+
+
+def test_vti_bicgstab(data):
+    model, sfield = vti_setup()
+    efield, info = solver.solve(
+        model, sfield, sslsolver='bicgstab', semicoarsening=False,
+        linerelaxation=False, cycle='F', tol=1e-6, return_info=True,
+        verb=0, device='cpu')
+    assert info['it_ssl'] == data['vti_bicgstab_it']
+    assert_allclose(efield.field, data['vti_bicgstab_field'], rtol=1e-8,
+                    atol=1e-18)
+
+
+@pytest.mark.parametrize('case,kw', [
+    ('het_sc', {'semicoarsening': 123, 'linerelaxation': False}),
+    ('het_lr', {'semicoarsening': False, 'linerelaxation': 456}),
+])
+def test_heterogeneous_sclr(data, case, kw):
+    hx = np.ones(16) * 150.
+    grid = meshes.TensorMesh([hx, hx, hx], origin=(-1200.,) * 3)
+    model = models.Model(grid, property_x=data['het_prop'],
+                         mapping='Resistivity')
+    sfield = fields.get_source_field(grid, (0., 0., 0., 20., 5.), 1.33)
+    efield, info = solver.solve(
+        model, sfield, sslsolver=False, cycle='F', tol=1e-6,
+        return_info=True, verb=0, device='cpu', **kw)
+    assert info['it_mg'] == data[f'{case}_it']
+    assert_allclose(efield.field, data[f'{case}_field'], rtol=1e-10,
                     atol=1e-18)
 
 
@@ -59,7 +90,7 @@ def test_laplace(data):
     sfield = fields.get_source_field(grid, (0., 0., 0., 0., 0.), -1.5)
     efield, info = solver.solve(
         model, sfield, plain=True, cycle='F', tol=1e-6, return_info=True,
-        verb=0)
+        verb=0, device='cpu')
     assert info['it_mg'] == data['lap_it']
     assert efield.field.dtype == np.float64
     assert_allclose(efield.field, data['lap_field'], rtol=1e-10,
