@@ -21,11 +21,11 @@
 //      core.py:680-766), with the last-group reduction (core.py:1467-1477);
 //      unknowns per group g: [ex(g), ey-, ey+, ez-, ez+] at node g+1;
 //   2. eliminates forward (block-Thomas, unpivoted as the reference's
-//      banded LDL^T): C_0 = M_0, C_g = M_g - L_g C_{g-1}^{-1} L_g^T,
-//      y_g = r_g - L_g C_{g-1}^{-1} y_{g-1}, with C_g^{-1} (5x5, by
-//      Gauss-Jordan) and y_g carried in registers, and keeps for the
-//      backward pass W_g = C_g^{-1} L_{g+1}^T and z_g = C_g^{-1} y_g (30
-//      values per group) in a scratch tensor that the wrapper allocates;
+//      banded LDL^T), in the form of emg3d_tpu/ops/smoothers.py:942-951:
+//      solve C_{g-1} X = [L_g^T | y_{g-1}] (5x6), then
+//      C_g = M_g - L_g X[:, :5] and y_g = r_g - L_g X[:, 5]; X is kept for
+//      the backward pass (W_{g-1} = X[:, :5], z_{g-1} = X[:, 5]: 30 values
+//      per group) in a scratch tensor that the wrapper allocates;
 //   3. substitutes backward, u_g = z_g - W_g u_{g+1}, and writes the five
 //      unknowns of each group back in place.
 //
@@ -33,17 +33,44 @@
 // transversely neighbouring lines, whose transverse node parity differs,
 // so no line of a color reads what another line of the color writes.
 //
-// What bounds it on this card: memory traffic.  Per group a line reads
-// about 60 operand values (8 zeta, 20 eta, 5 sources, 20 neighbouring
-// edges, the widths) and writes 5 unknowns, for some 2,000 real flops; in
-// complex64 that is under 10 flop/byte, below the card's ~20.  The scratch
-// adds 30 values written and read back per group.  One thread per line,
-// one warp per block (so that the few lines of a color spread over the
-// SMs): at 128^3 a color has 4,096 lines, a few percent of the card's
-// thread slots, so the kernel is latency- rather than bandwidth-limited;
-// consecutive threads take the transverse frame axis with the smaller
-// memory stride, so that they read neighbouring addresses.  A warp per
-// line or a cyclic-reduction form is later work.
+// What bounds it on this card: neither the bytes it must move (about 60
+// operand values read and 5 written per group; 0.038 ms at 128^3
+// complex64) nor its arithmetic, but the length of one line's dependent
+// chain: the groups of a line follow one another, and a color has few
+// lines (4,096 at 128^3, 1,024 at 64^3).  Measured on an H100 (PERF.md):
+// a warp alone on its scheduler takes about 1.0 us per group (some 840
+// instructions at 2.4 cycles each), whatever the number of lines, up to
+// one warp per scheduler (2,112 lines); at 128^3 two warps share a
+// scheduler and the scratch no longer fits the L2 cache, and a group takes
+// 2.0-2.2 us.
+// What the design does about it: a TEAM of 8 lanes shares one line, 4
+// lines per warp, one warp per block (so that the few lines of a color
+// spread over the SMs).
+//   - Lane q < 5 owns column q of the step's right-hand side [L_g^T |
+//     y_{g-1}] and lanes 5-7 the y column (6 and 7 repeat 5, so that every
+//     lane runs the same instructions).  Each lane factors the symmetric
+//     C_{g-1} redundantly (unpivoted LDL^T, the products fused into
+//     multiply-adds, the pivots inverted by IEEE division) and solves only
+//     its own column.  Column q of C_g = M_g -
+//     L_g X is then local to lane q, and y_g to lane 5; the lanes exchange
+//     the 15 distinct entries of C_g by shuffles of width 8.
+//   - The assembly is shared out: all lanes of a team read the zeta of the
+//     line at the same addresses and compute the real coefficients
+//     redundantly; lane q loads only the 4 eta of its own diagonal entry,
+//     its own source and its own 4-6 neighbouring edges, through per-lane
+//     pointers set up once per line, so that no branch diverges.  The
+//     loads of group g+1 are started before the algebra of group g.
+//   - The scratch stays in device memory: lane q stores its column of X
+//     (lane 5: z), laid out by rows, 6 values per row, so that in the
+//     backward pass lane i reads row i of [W_g | z_g] as 6 consecutive
+//     values, computes its own unknown and writes it itself.
+//   - Consecutive teams take the transverse frame axis with the smaller
+//     memory stride.
+// Tried on the card and not kept (PERF.md): 20 scratch values per group
+// (the symmetric C_g^{-1} and z_g, with L rebuilt in the backward pass),
+// teams of 6 lanes with 5 lines per warp, reading the scratch 8 groups
+// ahead, 2, 4 or 8 warps per block, and the approximate reciprocal in
+// float.
 //
 // Complex tensors are read in place, interleaved (re, im), through
 // torch.view_as_real(...).data_ptr().  Shapes and strides are run-time
@@ -56,6 +83,10 @@
 
 namespace {
 
+constexpr int TEAM = 8;             // lanes that share one line
+constexpr int WARP = 32;            // threads per block: 4 teams
+constexpr unsigned FULL = 0xffffffffu;
+
 template <typename R>
 struct alignas(2 * sizeof(R)) Cx {
   R re, im;
@@ -67,6 +98,8 @@ template <typename R> __device__ __forceinline__ R cx_add(R a, R b) { return a +
 template <typename R> __device__ __forceinline__ R cx_sub(R a, R b) { return a - b; }
 template <typename R> __device__ __forceinline__ R cx_mul(R a, R b) { return a * b; }
 template <typename R> __device__ __forceinline__ R cx_scale(R a, R s) { return a * s; }
+// 1 / a, by IEEE division in float too: the approximate reciprocal was
+// timed (7 % faster at 128^3, 13-15 % below) and not kept.
 template <typename R> __device__ __forceinline__ R cx_recip(R a) { return R(1) / a; }
 
 template <typename R>
@@ -87,13 +120,17 @@ __device__ __forceinline__ Cx<R> cx_scale(Cx<R> a, R s) {
 }
 template <typename R>
 __device__ __forceinline__ Cx<R> cx_recip(Cx<R> a) {
-  R d = R(1) / (a.re * a.re + a.im * a.im);
+  R d = cx_recip(a.re * a.re + a.im * a.im);
   return {a.re * d, -a.im * d};
 }
-template <typename R> __device__ __forceinline__ R cx_neg(R a) { return -a; }
+// s - a * b, fused: 4 fused multiply-adds, 2 deep, for a complex value.
+template <typename R> __device__ __forceinline__ R cx_msub(R s, R a, R b) {
+  return fma(-a, b, s);
+}
 template <typename R>
-__device__ __forceinline__ Cx<R> cx_neg(Cx<R> a) {
-  return {-a.re, -a.im};
+__device__ __forceinline__ Cx<R> cx_msub(Cx<R> s, Cx<R> a, Cx<R> b) {
+  return {fma(a.im, b.im, fma(-a.re, b.re, s.re)),
+          fma(-a.im, b.re, fma(-a.re, b.im, s.im))};
 }
 
 template <typename V, typename R> struct Real;
@@ -108,6 +145,24 @@ template <typename R> struct Real<Cx<R>, R> {
 template <typename V, typename R>
 __device__ __forceinline__ V axpy(V acc, R c, V v) {
   return cx_add(acc, cx_scale(v, c));
+}
+
+// The value that lane ``src`` of the caller's team holds in ``v``.
+template <typename R>
+__device__ __forceinline__ R team_get(R v, int src) {
+  return __shfl_sync(FULL, v, src, TEAM);
+}
+template <typename R>
+__device__ __forceinline__ Cx<R> team_get(Cx<R> v, int src) {
+  return {__shfl_sync(FULL, v.re, src, TEAM),
+          __shfl_sync(FULL, v.im, src, TEAM)};
+}
+
+// One of five values by the lane's role (0-4), without a branch.
+template <typename T>
+__device__ __forceinline__ T sel5(int role, T a0, T a1, T a2, T a3, T a4) {
+  return role == 0 ? a0 : role == 1 ? a1 : role == 2 ? a2
+                                    : role == 3 ? a3 : a4;
 }
 
 // Frame geometry: cells along the frame axes, and the element strides of
@@ -139,50 +194,200 @@ struct Line {
   __device__ __forceinline__ int64_t oc(int64_t a, int64_t b, int64_t c) const {
     return a * g.sc[0] + b * g.sc[1] + c * g.sc[2];
   }
+};
 
-  // The sub-diagonal block L_a of group a (its 8 nonzero entries, all
-  // real): l01 l02 l03 l04 in row 0, l11 l22 l33 l44 on the diagonal.
-  // Zero rows 1-4 for the last group.
-  __device__ __forceinline__ void left(int64_t a, int64_t iy, int64_t iz,
-                                       R (&L)[8]) const {
-    const R ihxa = R(1) / hx[a];
-    const R kxa = R(0.5) * ihxa;
-    const R kym = R(0.5) / hy[iy - 1], kyp = R(0.5) / hy[iy];
-    const R kzm = R(0.5) / hz[iz - 1], kzp = R(0.5) / hz[iz];
-    const R zamm = zeta[oc(a, iy - 1, iz - 1)], zamp = zeta[oc(a, iy - 1, iz)];
-    const R zapm = zeta[oc(a, iy, iz - 1)], zapp = zeta[oc(a, iy, iz)];
-    L[0] = kym * (zamp + zamm) * ihxa;     // zyLxm
-    L[1] = -kyp * (zapp + zapm) * ihxa;    // -zyRxm
-    L[2] = kzm * (zapm + zamm) * ihxa;     // yzLxm
-    L[3] = -kzp * (zapp + zamp) * ihxa;    // -yzRxm
-    const bool last = a == g.nx - 1;
-    L[4] = last ? R(0) : -kxa * (zamp + zamm) * ihxa;   // -zxLym
-    L[5] = last ? R(0) : -kxa * (zapp + zapm) * ihxa;   // -zxLyp
-    L[6] = last ? R(0) : -kxa * (zapm + zamm) * ihxa;   // -yxLzm
-    L[7] = last ? R(0) : -kxa * (zapp + zamp) * ihxa;   // -yxLzp
+// What one lane reads of one group: its source, its 6 neighbouring edges
+// (4 for role 0), the 4 eta of its diagonal entry, and for the whole team
+// the 4 zeta and the width of the cells at x = min(g + 1, nx - 1).
+template <typename V, typename R>
+struct Raw {
+  V src, nb[6], eta[4];
+  R zb[4], hb;
+};
+
+// Unpivoted LDL^T of the symmetric 5x5 C, of which only the lower
+// triangle is read; C is overwritten.  l holds the strict lower triangle
+// of the unit factor, row by row, dinv the inverses of the pivots.
+template <typename V>
+struct Ldl {
+  V l[10], dinv[5];
+
+  __device__ __forceinline__ V& at(int i, int j) { return l[i * (i - 1) / 2 + j]; }
+
+  __device__ __forceinline__ void factor(V (&C)[5][5]) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      // C[i][j] <- u_ij = l_ij d_j = c_ij - sum_{k<j} u_ik l_jk.
+#pragma unroll
+      for (int i = j; i < 5; ++i) {
+        V s = C[i][j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = cx_msub(s, C[i][k], at(j, k));
+        C[i][j] = s;
+      }
+      dinv[j] = cx_recip(C[j][j]);
+#pragma unroll
+      for (int i = j + 1; i < 5; ++i) at(i, j) = cx_mul(C[i][j], dinv[j]);
+    }
   }
 
-  // The diagonal block M and the rhs r of group a, with the last-group
-  // reduction (reference core.py:680-766, 1467-1477).
-  __device__ __forceinline__ void block(int64_t a, int64_t iy, int64_t iz,
-                                        V (&M)[5][5], V (&r)[5]) const {
-    using RV = Real<V, R>;
-    const int64_t b = a + 1 < g.nx ? a + 1 : g.nx - 1;
-    const int64_t ym = iy - 1, yp = iy, zm = iz - 1, zp = iz;
-    const R ihxa = R(1) / hx[a], ihxb = R(1) / hx[b];
-    const R ihym = R(1) / hy[ym], ihyp = R(1) / hy[yp];
-    const R ihzm = R(1) / hz[zm], ihzp = R(1) / hz[zp];
+  // x <- C^{-1} x.
+  __device__ __forceinline__ void solve(V (&x)[5]) {
+#pragma unroll
+    for (int i = 1; i < 5; ++i)
+#pragma unroll
+      for (int k = 0; k < i; ++k) x[i] = cx_msub(x[i], at(i, k), x[k]);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) x[i] = cx_mul(x[i], dinv[i]);
+#pragma unroll
+    for (int i = 3; i >= 0; --i)
+#pragma unroll
+      for (int k = i + 1; k < 5; ++k) x[i] = cx_msub(x[i], at(k, i), x[k]);
+  }
+};
+
+template <typename V, typename R>
+__global__ void __launch_bounds__(WARP)
+line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
+                  int y_fastest) {
+  using RV = Real<V, R>;
+  const int64_t nlines = ncy * ncz;
+  const int q = threadIdx.x % TEAM;
+  int64_t t = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / TEAM;
+  // A team past the last line repeats it and stores nothing: the shuffles
+  // need every lane of the warp.
+  const bool active = t < nlines;
+  if (!active) t = nlines - 1;
+  // Lanes 0-4 assemble row `role` and own column `role`; lanes 5-7 own the
+  // y column and repeat the assembly of row 4.
+  const int role = q < 5 ? q : 4;
+  const bool is_y = q >= 5;
+  const bool role0 = role == 0;
+  const int64_t j = y_fastest ? t % ncy : t / ncz;
+  const int64_t k = y_fastest ? t / ncy : t % ncz;
+  const int64_t iy = 1 + py + 2 * j, iz = 1 + pz + 2 * k;
+  const int64_t ym = iy - 1, yp = iy, zm = iz - 1, zp = iz;
+  const int64_t nx = ln.g.nx;
+  const int64_t sx0 = ln.g.sx[0], sy0 = ln.g.sy[0], sz0 = ln.g.sz[0];
+  const int64_t sc0 = ln.g.sc[0];
+
+  // Transverse widths: the same for every group of the line.
+  const R ihym = cx_recip(ln.hy[ym]), ihyp = cx_recip(ln.hy[yp]);
+  const R ihzm = cx_recip(ln.hz[zm]), ihzp = cx_recip(ln.hz[zp]);
+  const R kym = R(0.5) * ihym, kyp = R(0.5) * ihyp;
+  const R kzm = R(0.5) * ihzm, kzp = R(0.5) * ihzp;
+
+  // zeta of the 4 cells around the line, at x = 0: mm, mp, pm, pp.
+  const int64_t tmm = ln.oc(0, ym, zm), tmp = ln.oc(0, ym, zp);
+  const int64_t tpm = ln.oc(0, yp, zm), tpp = ln.oc(0, yp, zp);
+
+  // The 4 eta cells of the lane's diagonal entry (reference
+  // core.py:390): role 0 takes the 4 cells at x = a; roles 1-4 take two
+  // transverse cells at x = b (pair 0) and at x = a (pair 1).
+  const V* const eta_p = role0 ? ln.eta_x : role <= 2 ? ln.eta_y : ln.eta_z;
+  const int64_t eo0 = sel5(role, tmm, tmm, tpm, tpm, tpp);
+  const int64_t eo1 = sel5(role, tpm, tmp, tpp, tmm, tmp);
+  const int64_t eo2 = role0 ? tmp : eo0;
+  const int64_t eo3 = role0 ? tpp : eo1;
+
+  // The lane's source and neighbouring edges, at x = 0 (the off-line
+  // couplings of its row, reference core.py:723-766, in the order of the
+  // sums there).  Terms 0 and 1 are ex edges; 2, 3 and 4, 5 are two pairs
+  // of the other components.  Roles 1-4 read term 0 or term 1 at x = b.
+  const V* const ps = sel5<const V*>(role, ln.srcx + ln.ox(0, iy, iz),
+                           ln.srcy + ln.oy(0, ym, iz),
+                           ln.srcy + ln.oy(0, yp, iz),
+                           ln.srcz + ln.oz(0, iy, zm),
+                           ln.srcz + ln.oz(0, iy, zp));
+  const int64_t ssrc = role0 ? sx0 : role <= 2 ? sy0 : sz0;
+  const V* const p0 = ln.ex + sel5(role, ln.ox(0, iy + 1, iz),
+                                   ln.ox(0, iy - 1, iz), ln.ox(0, iy + 1, iz),
+                                   ln.ox(0, iy, iz - 1), ln.ox(0, iy, iz + 1));
+  const V* const p1 = role0 ? ln.ex + ln.ox(0, iy - 1, iz) : p0;
+  const bool b0 = role == 1 || role == 3, b1 = role == 2 || role == 4;
+  const V* const p2 = sel5<const V*>(role, ln.ex + ln.ox(0, iy, iz + 1),
+                           ln.ez + ln.oz(0, iy - 1, zp),
+                           ln.ez + ln.oz(0, iy + 1, zm),
+                           ln.ey + ln.oy(0, yp, iz - 1),
+                           ln.ey + ln.oy(0, ym, iz + 1));
+  const V* const p3 = sel5<const V*>(role, ln.ex + ln.ox(0, iy, iz - 1),
+                           ln.ez + ln.oz(0, iy - 1, zm),
+                           ln.ez + ln.oz(0, iy + 1, zp),
+                           ln.ey + ln.oy(0, ym, iz - 1),
+                           ln.ey + ln.oy(0, yp, iz + 1));
+  const int64_t s23 = role0 ? sx0 : role <= 2 ? sz0 : sy0;
+  // Role 0 has no terms 4 and 5: it reads term 0 again and drops it.
+  const V* const p4 = sel5<const V*>(role, p0,
+                           ln.ey + ln.oy(0, ym, iz + 1),
+                           ln.ey + ln.oy(0, yp, iz + 1),
+                           ln.ez + ln.oz(0, iy + 1, zm),
+                           ln.ez + ln.oz(0, iy + 1, zp));
+  const V* const p5 = sel5<const V*>(role, p0,
+                           ln.ey + ln.oy(0, ym, iz - 1),
+                           ln.ey + ln.oy(0, yp, iz - 1),
+                           ln.ez + ln.oz(0, iy - 1, zm),
+                           ln.ez + ln.oz(0, iy - 1, zp));
+  const int64_t s45 = role0 ? sx0 : role <= 2 ? sy0 : sz0;
+  // The constant factor of each of the lane's 6 rhs coefficients.
+  const R w0 = sel5(role, ihyp, ihym, ihyp, ihzm, ihzp);
+  const R w1 = sel5(role, ihym, -ihym, -ihyp, -ihzm, -ihzp);
+  const R w2 = sel5(role, ihzp, ihym, ihyp, ihzm, ihzp);
+  const R w3 = sel5(role, ihzm, -ihym, -ihyp, -ihzm, -ihzp);
+  const R w4 = sel5(role, R(0), ihzp, ihzp, ihyp, ihyp);
+  const R w5 = sel5(role, R(0), ihzm, ihzm, ihym, ihym);
+
+  // Everything the lane reads of group a.  b = min(a + 1, nx - 1): in the
+  // last group the x = b operands are read (in bounds) and dropped.
+  auto load = [&](int64_t a) {
+    Raw<V, R> w;
+    const int64_t b = a + 1 < nx ? a + 1 : nx - 1;
+    const int64_t xr = role0 ? a : b;
+    w.src = ps[xr * ssrc];
+    w.nb[0] = p0[(b0 ? b : a) * sx0];
+    w.nb[1] = p1[(b1 ? b : a) * sx0];
+    w.nb[2] = p2[xr * s23];
+    w.nb[3] = p3[xr * s23];
+    w.nb[4] = p4[xr * s45];
+    w.nb[5] = p5[xr * s45];
+    w.eta[0] = eta_p[xr * sc0 + eo0];
+    w.eta[1] = eta_p[xr * sc0 + eo1];
+    w.eta[2] = eta_p[a * sc0 + eo2];
+    w.eta[3] = eta_p[a * sc0 + eo3];
+    w.zb[0] = ln.zeta[b * sc0 + tmm];
+    w.zb[1] = ln.zeta[b * sc0 + tmp];
+    w.zb[2] = ln.zeta[b * sc0 + tpm];
+    w.zb[3] = ln.zeta[b * sc0 + tpp];
+    w.hb = ln.hx[b];
+    return w;
+  };
+
+  // Scratch value (row i, column c) of group a of this line: 5 rows of
+  // [W_a[i, 0..4], z_a[i]].
+  V* const scr = ln.scratch;
+  auto sidx = [&](int64_t a, int i, int c) {
+    return (a * nlines + t) * 30 + (i * 6 + c);
+  };
+
+  V C[5][5], col[5];
+  Ldl<V> f;
+  R za[4] = {ln.zeta[tmm], ln.zeta[tmp], ln.zeta[tpm], ln.zeta[tpp]};
+  R ihxa = cx_recip(ln.hx[0]);
+  Raw<V, R> nxt = load(0);
+
+  // Forward elimination.  Entering step a > 0: every lane holds the lower
+  // triangle of C_{a-1} in C, and the y lanes hold y_{a-1} in col.
+  for (int64_t a = 0; a < nx; ++a) {
+    const Raw<V, R> cur = nxt;
+    if (a + 1 < nx) nxt = load(a + 1);
+    const bool last = a == nx - 1;
+
+    // The averaged-zeta coefficients (reference core.py:350-374); z{x: a|b}
+    // {y: m|p}{z: m|p} are the 8 cells around the edge pair.
+    const R ihxb = cx_recip(cur.hb);
     const R kxa = R(0.5) * ihxa, kxb = R(0.5) * ihxb;
-    const R kym = R(0.5) * ihym, kyp = R(0.5) * ihyp;
-    const R kzm = R(0.5) * ihzm, kzp = R(0.5) * ihzp;
-
-    // zeta at the 8 cells around the edge pair: z{x: a|b}{y: m|p}{z: m|p}.
-    const R zamm = zeta[oc(a, ym, zm)], zamp = zeta[oc(a, ym, zp)];
-    const R zapm = zeta[oc(a, yp, zm)], zapp = zeta[oc(a, yp, zp)];
-    const R zbmm = zeta[oc(b, ym, zm)], zbmp = zeta[oc(b, ym, zp)];
-    const R zbpm = zeta[oc(b, yp, zm)], zbpp = zeta[oc(b, yp, zp)];
-
-    // The 24 averaged-zeta coefficients (reference core.py:350-374).
+    const R zamm = za[0], zamp = za[1], zapm = za[2], zapp = za[3];
+    const R zbmm = cur.zb[0], zbmp = cur.zb[1];
+    const R zbpm = cur.zb[2], zbpp = cur.zb[3];
     const R zyLxm = kym * (zamp + zamm), zyRxm = kyp * (zapp + zapm);
     const R yzLxm = kzm * (zapm + zamm), yzRxm = kzp * (zapp + zamp);
     const R zxLym = kxa * (zamp + zamm), zxRym = kxb * (zbmp + zbmm);
@@ -194,211 +399,142 @@ struct Line {
     const R yxLzp = kxa * (zapp + zamp), yxRzp = kxb * (zbpp + zbmp);
     const R xyLzp = kym * (zbmp + zamp), xyRzp = kyp * (zbpp + zapp);
 
-    // Diagonal eta sums / 4 over the 4 cells around each edge.
-    auto sum4 = [](V p, V q, V s, V t) {
-      return cx_scale(cx_add(cx_add(p, q), cx_add(s, t)), R(0.25));
-    };
-    const V st0 = sum4(eta_x[oc(a, ym, zm)], eta_x[oc(a, yp, zm)],
-                       eta_x[oc(a, ym, zp)], eta_x[oc(a, yp, zp)]);
-    const V st2 = sum4(eta_y[oc(b, ym, zm)], eta_y[oc(b, ym, zp)],
-                       eta_y[oc(a, ym, zm)], eta_y[oc(a, ym, zp)]);
-    const V st3 = sum4(eta_y[oc(b, yp, zm)], eta_y[oc(b, yp, zp)],
-                       eta_y[oc(a, yp, zm)], eta_y[oc(a, yp, zp)]);
-    const V st4 = sum4(eta_z[oc(b, yp, zm)], eta_z[oc(b, ym, zm)],
-                       eta_z[oc(a, yp, zm)], eta_z[oc(a, ym, zm)]);
-    const V st5 = sum4(eta_z[oc(b, yp, zp)], eta_z[oc(b, ym, zp)],
-                       eta_z[oc(a, yp, zp)], eta_z[oc(a, ym, zp)]);
+    // The sub-diagonal block L_a (8 real nonzeros): row 0 = (0, l0[1..4]),
+    // rows 1-4 diagonal ld[1..4], zero in the last group.
+    R l0[5], ld[5];
+    l0[0] = ld[0] = R(0);
+    l0[1] = zyLxm * ihxa;
+    l0[2] = -zyRxm * ihxa;
+    l0[3] = yzLxm * ihxa;
+    l0[4] = -yzRxm * ihxa;
+    ld[1] = last ? R(0) : -zxLym * ihxa;
+    ld[2] = last ? R(0) : -zxLyp * ihxa;
+    ld[3] = last ? R(0) : -yxLzm * ihxa;
+    ld[4] = last ? R(0) : -yxLzp * ihxa;
 
-    const V m00 = cx_sub(RV::make(zyRxm * ihyp + zyLxm * ihym
-                                  + yzRxm * ihzp + yzLxm * ihzm), st0);
-    r[0] = srcx[ox(a, iy, iz)];
-    r[0] = axpy(r[0], zyRxm * ihyp, ex[ox(a, iy + 1, iz)]);
-    r[0] = axpy(r[0], zyLxm * ihym, ex[ox(a, iy - 1, iz)]);
-    r[0] = axpy(r[0], yzRxm * ihzp, ex[ox(a, iy, iz + 1)]);
-    r[0] = axpy(r[0], yzLxm * ihzm, ex[ox(a, iy, iz - 1)]);
+    // The lane's row of the rhs r_a: coefficient k is the averaged zeta
+    // sk times the lane's constant inverse width wk (sign included).
+    const R s0 = sel5(role, zyRxm, zxRym, zxLyp, yxRzm, yxLzp);
+    const R s1 = sel5(role, zyLxm, zxLym, zxRyp, yxLzm, yxRzp);
+    const R s2 = sel5(role, yzRxm, xzRym, xzLyp, xyRzm, xyLzp);
+    const R s3 = sel5(role, yzLxm, xzLym, xzRyp, xyLzm, xyRzp);
+    const R s4 = sel5(role, R(0), xzRym, xzRyp, xyRzm, xyRzp);
+    const R s5 = sel5(role, R(0), xzLym, xzLyp, xyLzm, xyLzp);
+    const R c0 = s0 * w0, c1 = s1 * w1, c2 = s2 * w2, c3 = s3 * w3;
+    const R c4 = s4 * w4, c5 = s5 * w5;
+    V rq = cur.src;
+    rq = axpy(rq, c0, cur.nb[0]);
+    rq = axpy(rq, c1, cur.nb[1]);
+    rq = axpy(rq, c2, cur.nb[2]);
+    rq = axpy(rq, c3, cur.nb[3]);
+    if (!role0) {
+      rq = axpy(rq, c4, cur.nb[4]);
+      rq = axpy(rq, c5, cur.nb[5]);
+    }
+    // Last group: only ex; identity rows for the four absent unknowns.
+    if (last && !role0) rq = RV::make(R(0));
 
-    if (a == g.nx - 1) {
-      // Last group: only ex; identity rows for the four absent unknowns.
+    // The lane's column of the diagonal block M_a (= its row: M_a is
+    // symmetric), real parts first.
+    // Role 0: the sum of its 4 rhs coefficients.  Roles 1-4: the two ex
+    // couplings over the x widths (the one read at x = b over hx[b]) plus
+    // the rhs coefficients 4 and 5.
+    const R dre = role0 ? c0 + c1 + c2 + c3
+                        : s0 * (b0 ? ihxb : ihxa) + s1 * (b1 ? ihxb : ihxa)
+                              + c4 + c5;
+    const V st = cx_scale(cx_add(cx_add(cur.eta[0], cur.eta[1]),
+                                 cx_add(cur.eta[2], cur.eta[3])), R(0.25));
+    V diag = cx_sub(RV::make(dre), st);
+    if (last && !role0) diag = RV::make(R(1));
+    const R m10 = -l0[1], m20 = -l0[2], m30 = -l0[3], m40 = -l0[4];
+    const R m31 = -xzLym * ihym, m41 = xzRym * ihym;
+    const R m32 = xzLyp * ihyp, m42 = -xzRyp * ihyp;
+    const R zero = R(0);
+    R mc[5];
+    mc[0] = sel5(role, zero, m10, m20, m30, m40);
+    mc[1] = sel5(role, m10, zero, zero, m31, m41);
+    mc[2] = sel5(role, m20, zero, zero, m32, m42);
+    mc[3] = sel5(role, m30, m31, m32, zero, zero);
+    mc[4] = sel5(role, m40, m41, m42, zero, zero);
+    V base[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const V off = RV::make(last ? zero : mc[i]);
+      const V ri = team_get(rq, i);          // r_a[i], from the lane of row i
+      base[i] = is_y ? ri : (i == role ? diag : off);
+    }
+
+    if (a > 0) {
+      // The lane's column of [L_a^T | y_{a-1}]: row q of L_a, or y.
+      V x[5];
 #pragma unroll
       for (int i = 0; i < 5; ++i) {
-#pragma unroll
-        for (int j = 0; j < 5; ++j) M[i][j] = RV::make(R(i == j && i > 0));
-        if (i > 0) r[i] = RV::make(R(0));
+        const R bl = q == 0 ? l0[i] : (q == i ? ld[i] : zero);
+        x[i] = is_y ? col[i] : RV::make(bl);
       }
-      M[0][0] = m00;
-      return;
-    }
-
-    M[0][0] = m00;
-    M[1][1] = cx_sub(RV::make(zxRym * ihxb + zxLym * ihxa
-                              + xzRym * ihzp + xzLym * ihzm), st2);
-    M[2][2] = cx_sub(RV::make(zxRyp * ihxb + zxLyp * ihxa
-                              + xzRyp * ihzp + xzLyp * ihzm), st3);
-    M[3][3] = cx_sub(RV::make(yxRzm * ihxb + yxLzm * ihxa
-                              + xyRzm * ihyp + xyLzm * ihym), st4);
-    M[4][4] = cx_sub(RV::make(yxRzp * ihxb + yxLzp * ihxa
-                              + xyRzp * ihyp + xyLzp * ihym), st5);
-    M[1][0] = M[0][1] = RV::make(-zyLxm * ihxa);
-    M[2][0] = M[0][2] = RV::make(zyRxm * ihxa);
-    M[3][0] = M[0][3] = RV::make(-yzLxm * ihxa);
-    M[4][0] = M[0][4] = RV::make(yzRxm * ihxa);
-    M[2][1] = M[1][2] = RV::make(R(0));
-    M[3][1] = M[1][3] = RV::make(-xzLym * ihym);
-    M[4][1] = M[1][4] = RV::make(xzRym * ihym);
-    M[3][2] = M[2][3] = RV::make(xzLyp * ihyp);
-    M[4][2] = M[2][4] = RV::make(-xzRyp * ihyp);
-    M[4][3] = M[3][4] = RV::make(R(0));
-
-    // Off-line couplings moved to the rhs (core.py:723-766).
-    r[1] = srcy[oy(b, ym, iz)];
-    r[1] = axpy(r[1], zxRym * ihym, ex[ox(b, iy - 1, iz)]);
-    r[1] = axpy(r[1], -zxLym * ihym, ex[ox(a, iy - 1, iz)]);
-    r[1] = axpy(r[1], xzRym * ihym, ez[oz(b, iy - 1, zp)]);
-    r[1] = axpy(r[1], -xzLym * ihym, ez[oz(b, iy - 1, zm)]);
-    r[1] = axpy(r[1], xzRym * ihzp, ey[oy(b, ym, iz + 1)]);
-    r[1] = axpy(r[1], xzLym * ihzm, ey[oy(b, ym, iz - 1)]);
-
-    r[2] = srcy[oy(b, yp, iz)];
-    r[2] = axpy(r[2], zxLyp * ihyp, ex[ox(a, iy + 1, iz)]);
-    r[2] = axpy(r[2], -zxRyp * ihyp, ex[ox(b, iy + 1, iz)]);
-    r[2] = axpy(r[2], xzLyp * ihyp, ez[oz(b, iy + 1, zm)]);
-    r[2] = axpy(r[2], -xzRyp * ihyp, ez[oz(b, iy + 1, zp)]);
-    r[2] = axpy(r[2], xzRyp * ihzp, ey[oy(b, yp, iz + 1)]);
-    r[2] = axpy(r[2], xzLyp * ihzm, ey[oy(b, yp, iz - 1)]);
-
-    r[3] = srcz[oz(b, iy, zm)];
-    r[3] = axpy(r[3], yxRzm * ihzm, ex[ox(b, iy, iz - 1)]);
-    r[3] = axpy(r[3], -yxLzm * ihzm, ex[ox(a, iy, iz - 1)]);
-    r[3] = axpy(r[3], xyRzm * ihzm, ey[oy(b, yp, iz - 1)]);
-    r[3] = axpy(r[3], -xyLzm * ihzm, ey[oy(b, ym, iz - 1)]);
-    r[3] = axpy(r[3], xyRzm * ihyp, ez[oz(b, iy + 1, zm)]);
-    r[3] = axpy(r[3], xyLzm * ihym, ez[oz(b, iy - 1, zm)]);
-
-    r[4] = srcz[oz(b, iy, zp)];
-    r[4] = axpy(r[4], yxLzp * ihzp, ex[ox(a, iy, iz + 1)]);
-    r[4] = axpy(r[4], -yxRzp * ihzp, ex[ox(b, iy, iz + 1)]);
-    r[4] = axpy(r[4], xyLzp * ihzp, ey[oy(b, ym, iz + 1)]);
-    r[4] = axpy(r[4], -xyRzp * ihzp, ey[oy(b, yp, iz + 1)]);
-    r[4] = axpy(r[4], xyRzp * ihyp, ez[oz(b, iy + 1, zp)]);
-    r[4] = axpy(r[4], xyLzp * ihym, ez[oz(b, iy - 1, zp)]);
-  }
-};
-
-// In-place inverse of a 5x5 matrix by unpivoted Gauss-Jordan.
-template <typename V>
-__device__ __forceinline__ void invert5(V (&A)[5][5]) {
+      f.factor(C);
+      f.solve(x);
+      if (active && q < 6) {
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const V piv = cx_recip(A[k][k]);
-    A[k][k] = piv;
-#pragma unroll
-    for (int j = 0; j < 5; ++j)
-      if (j != k) A[k][j] = cx_mul(A[k][j], piv);
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      if (i == k) continue;
-      const V f = A[i][k];
-#pragma unroll
-      for (int j = 0; j < 5; ++j)
-        if (j != k) A[i][j] = cx_sub(A[i][j], cx_mul(f, A[k][j]));
-      A[i][k] = cx_neg(cx_mul(f, piv));
-    }
-  }
-}
-
-template <typename V, typename R>
-__global__ void __launch_bounds__(32)
-line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
-                  int y_fastest) {
-  const int64_t nlines = ncy * ncz;
-  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= nlines) return;
-  const int64_t j = y_fastest ? t % ncy : t / ncz;
-  const int64_t k = y_fastest ? t / ncy : t % ncz;
-  const int64_t iy = 1 + py + 2 * j, iz = 1 + pz + 2 * k;
-  const int64_t nx = ln.g.nx;
-  // Scratch value q of group a of this line; consecutive lines are
-  // consecutive in memory.
-  auto sidx = [&](int64_t a, int q) { return (a * 30 + q) * nlines + t; };
-
-  V C[5][5], y[5], z[5];
-  ln.block(0, iy, iz, C, y);
-  invert5(C);
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    z[i] = cx_mul(C[i][0], y[0]);
-#pragma unroll
-    for (int q = 1; q < 5; ++q) z[i] = cx_add(z[i], cx_mul(C[i][q], y[q]));
-  }
-
-  // Forward elimination.  Entering step a: C = C_{a-1}^{-1}, z = z_{a-1}.
-  for (int64_t a = 1; a < nx; ++a) {
-    R L[8];
-    V M[5][5];
-    ln.left(a, iy, iz, L);
-    ln.block(a, iy, iz, M, y);
-    // W = C_{a-1}^{-1} L_a^T: column 0 from row 0 of L_a, columns 1-4
-    // from its diagonal.  M -= L_a W and y -= L_a z, row by row of W.
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      V w[5];
-      w[0] = cx_scale(C[i][1], L[0]);
-      w[0] = cx_add(w[0], cx_scale(C[i][2], L[1]));
-      w[0] = cx_add(w[0], cx_scale(C[i][3], L[2]));
-      w[0] = cx_add(w[0], cx_scale(C[i][4], L[3]));
-#pragma unroll
-      for (int q = 1; q < 5; ++q) w[q] = cx_scale(C[i][q], L[3 + q]);
-#pragma unroll
-      for (int q = 0; q < 5; ++q) ln.scratch[sidx(a - 1, 5 * i + q)] = w[q];
-      ln.scratch[sidx(a - 1, 25 + i)] = z[i];
-      // Row 0 of L_a: L[0..3] at columns 1..4; row i >= 1: L[3 + i] at i.
-      const R l0i = i == 0 ? R(0) : L[i - 1];
-#pragma unroll
-      for (int q = 0; q < 5; ++q) M[0][q] = cx_sub(M[0][q], cx_scale(w[q], l0i));
-      y[0] = cx_sub(y[0], cx_scale(z[i], l0i));
-      if (i > 0) {
-#pragma unroll
-        for (int q = 0; q < 5; ++q) M[i][q] = cx_sub(M[i][q], cx_scale(w[q], L[3 + i]));
-        y[i] = cx_sub(y[i], cx_scale(z[i], L[3 + i]));
+        for (int i = 0; i < 5; ++i) scr[sidx(a - 1, i, q)] = x[i];
       }
+      // base - L_a x: row 0 of L_a is l0, rows 1-4 are diagonal.
+      V lx = cx_scale(x[1], l0[1]);
+#pragma unroll
+      for (int i = 2; i < 5; ++i) lx = axpy(lx, l0[i], x[i]);
+      col[0] = cx_sub(base[0], lx);
+#pragma unroll
+      for (int i = 1; i < 5; ++i) col[i] = cx_sub(base[i], cx_scale(x[i], ld[i]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) col[i] = base[i];
     }
+
+    // Every lane gathers the lower triangle of C_a from the column lanes.
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
+    for (int jj = 0; jj < 5; ++jj)
 #pragma unroll
-      for (int q = 0; q < 5; ++q) C[i][q] = M[i][q];
-    invert5(C);
+      for (int i = jj; i < 5; ++i) C[i][jj] = team_get(col[i], jj);
+
 #pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      z[i] = cx_mul(C[i][0], y[0]);
-#pragma unroll
-      for (int q = 1; q < 5; ++q) z[i] = cx_add(z[i], cx_mul(C[i][q], y[q]));
-    }
+    for (int i = 0; i < 4; ++i) za[i] = cur.zb[i];
+    ihxa = ihxb;
   }
 
-  // Backward substitution: u_{nx-1} = z_{nx-1} (ex only), then
-  // u_a = z_a - W_a u_{a+1}.
-  V* const ex = ln.ex; V* const ey = ln.ey; V* const ez = ln.ez;
-  ex[ln.ox(nx - 1, iy, iz)] = z[0];
+  // z_{nx-1} = C_{nx-1}^{-1} y_{nx-1} in the y lanes; u_{nx-1} = z_{nx-1}.
+  f.factor(C);
+  f.solve(col);
   V u[5];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) u[i] = z[i];
+  for (int i = 0; i < 5; ++i) u[i] = team_get(col[i], 5);
+
+  // Backward substitution, u_a = z_a - W_a u_{a+1}: lane i < 5 computes
+  // and writes unknown i (ex at cell a; the others at node a + 1).
+  V* const out = sel5<V*>(role, ln.ex + ln.ox(0, iy, iz),
+                      ln.ey + ln.oy(1, iy - 1, iz), ln.ey + ln.oy(1, iy, iz),
+                      ln.ez + ln.oz(1, iy, iz - 1), ln.ez + ln.oz(1, iy, iz));
+  const int64_t sout = role0 ? sx0 : role <= 2 ? sy0 : sz0;
+  const bool writes = active && q < 5;
+  if (writes && role0) out[(nx - 1) * sout] = u[0];
+  V row[6];
+  if (nx >= 2) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) row[c] = scr[sidx(nx - 2, role, c)];
+  }
   for (int64_t a = nx - 2; a >= 0; --a) {
-    V un[5];
+    V cur[6];
 #pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      V acc = ln.scratch[sidx(a, 25 + i)];
+    for (int c = 0; c < 6; ++c) cur[c] = row[c];
+    if (a > 0) {
 #pragma unroll
-      for (int q = 0; q < 5; ++q)
-        acc = cx_sub(acc, cx_mul(ln.scratch[sidx(a, 5 * i + q)], u[q]));
-      un[i] = acc;
+      for (int c = 0; c < 6; ++c) row[c] = scr[sidx(a - 1, role, c)];
     }
-    ex[ln.ox(a, iy, iz)] = un[0];
-    ey[ln.oy(a + 1, iy - 1, iz)] = un[1];
-    ey[ln.oy(a + 1, iy, iz)] = un[2];
-    ez[ln.oz(a + 1, iy, iz - 1)] = un[3];
-    ez[ln.oz(a + 1, iy, iz)] = un[4];
+    V un = cur[5];
 #pragma unroll
-    for (int i = 0; i < 5; ++i) u[i] = un[i];
+    for (int c = 0; c < 5; ++c) un = cx_msub(un, cur[c], u[c]);
+    if (writes) out[a * sout] = un;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) u[i] = team_get(un, i);
   }
 }
 
@@ -435,12 +571,11 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
   const int64_t ncy = (ln.g.ny - py) / 2, ncz = (ln.g.nz - pz) / 2;
   const int64_t nlines = ncy * ncz;
   if (nlines > 0) {
-    // Consecutive threads along the transverse axis of smaller stride;
-    // one warp per block spreads the few lines of a color over the SMs.
+    // Consecutive teams along the transverse axis of smaller stride; one
+    // warp (4 lines) per block spreads the lines of a color over the SMs.
     const int y_fastest = ln.g.sc[1] < ln.g.sc[2];
-    const int threads = 32;
-    const int64_t blocks = (nlines + threads - 1) / threads;
-    line_phase_kernel<V, R><<<dim3(unsigned(blocks)), threads, 0,
+    const int64_t blocks = (nlines * TEAM + WARP - 1) / WARP;
+    line_phase_kernel<V, R><<<dim3(unsigned(blocks)), WARP, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         ln, py, pz, ncy, ncz, y_fastest);
   }

@@ -4,11 +4,28 @@ No TPU kernel is replaced: the JAX package runs the line phase
 (``emg3d_tpu.ops.smoothers._line_relax_x_phase`` and ``_block_thomas``)
 as XLA ``lax.scan`` loops.  Eager PyTorch would run its block-Thomas as
 some 16,000 small launches per phase, so the port runs one phase as one
-hand-written kernel, ``csrc/line_phase.cu``.  This module holds its
-``ctypes`` wrapper and two plain-integer counters:
+hand-written kernel, ``csrc/line_phase.cu``: a team of 8 lanes per line
+(4 lines per warp) shares the assembly and the 5x5 algebra of the line's
+block-Thomas solve, whose intermediate blocks go through a scratch
+tensor in device memory.
 
-- ``LAUNCHES``: kernel launches (one per call of
-  :func:`gauss_seidel_line_phase_cuda` whose phase has lines);
+The launch path is split in two, because a smoothing call launches
+nu x 4 phases on the same tensors, and on the coarse levels the host,
+not the kernel, bounds back-to-back launches:
+
+- :class:`LinePlan` is built once from the 13 tensors and the axis.  It
+  runs every check, looks up the entry point, the pointers and the
+  frame geometry (:func:`line_geometry`), and allocates the scratch
+  once, sized for the parity with most lines.
+- :meth:`LinePlan.launch` does only the stream lookup, the ``ctypes``
+  call, the error check and the count.  A plan lives for one smoothing call, in which the
+  fields are updated in place; nothing is cached across calls.
+
+:func:`gauss_seidel_line_phase_cuda` is plan and launch in one call.
+Two plain-integer counters:
+
+- ``LAUNCHES``: kernel launches (one per :meth:`LinePlan.launch` whose
+  phase has lines);
 - ``PLAIN_CALLS_ON_CUDA``: calls of the plain PyTorch version
   (``smoothers._line_relax_phase_torch``) with CUDA tensors, which only
   comparisons with the kernel make.
@@ -25,14 +42,16 @@ import torch
 
 from emg3d_tpu_torch.ops import _build
 
-__all__ = ["gauss_seidel_line_phase_cuda", "LAUNCHES", "PLAIN_CALLS_ON_CUDA",
-           "reset_counts", "FRAMES", "SCRATCH_VALUES"]
+__all__ = ["gauss_seidel_line_phase_cuda", "LinePlan", "line_geometry",
+           "LAUNCHES", "PLAIN_CALLS_ON_CUDA", "reset_counts", "FRAMES",
+           "SCRATCH_VALUES"]
 
 LAUNCHES = 0
 PLAIN_CALLS_ON_CUDA = 0
 
 # Values the kernel keeps per line and group for the backward pass: the
-# 5x5 block C_g^{-1} L_{g+1}^T and the 5-vector C_g^{-1} y_g.
+# 5x5 block W_g = C_g^{-1} L_{g+1}^T and the 5-vector z_g = C_g^{-1} y_g,
+# as 5 rows of [W_g[i, :], z_g[i]].
 SCRATCH_VALUES = 30
 
 # The permuted frame of each line axis: frame axis i is original axis
@@ -89,6 +108,122 @@ def _ptr(t):
     return (torch.view_as_real(t) if t.is_complex() else t).data_ptr()
 
 
+def _cells_parity_error(cells, parity):
+    return ValueError(
+        f"line_phase: need >= 2 cells per axis and parities in "
+        f"{{0, 1}}; got cells {cells}, parity {parity}.")
+
+
+def line_geometry(cells, strides, axis):
+    """The frame of the lines along ``axis``, from plain integers.
+
+    ``cells``: (nx, ny, nz); ``strides``: the element strides of ``ex``,
+    ``ey``, ``ez`` and of a cell array (four 3-tuples), untransposed.
+    Returns ``(frame_cells, frame_strides, lines)``:
+
+    - ``frame_cells`` (NX, NY, NZ): lines along frame x, of NX cells;
+      the transverse frame axes y and z carry the parities;
+    - ``frame_strides``: 12 integers, the strides of the permuted views
+      (``t.permute(FRAMES[axis])``) of the frame's edge arrays of the x,
+      y and z role (original component ``FRAMES[axis][i]`` plays role
+      i), then of the cell arrays;
+    - ``lines``: {(p1, p2): lines of that parity}, 0 where a parity has
+      none.
+    """
+    tp = FRAMES[axis]
+    NX, NY, NZ = (cells[r] for r in tp)
+    frame_strides = tuple(strides[a][d] for a in (*tp, 3) for d in tp)
+    lines = {(p1, p2): ((NY - p1) // 2) * ((NZ - p2) // 2)
+             for p1 in (0, 1) for p2 in (0, 1)}
+    return (NX, NY, NZ), frame_strides, lines
+
+
+class LinePlan:
+    """Everything one smoothing call needs to launch its line phases.
+
+    Built from the 13 tensors of a phase and the line axis; see
+    :func:`gauss_seidel_line_phase_cuda` for what they must be.  Raises
+    on anything the kernel does not take and on a failed build.
+    """
+
+    def __init__(self, ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                 hx, hy, hz, axis):
+        device = ex.device
+        if device.type != "cuda":
+            raise ValueError(
+                f"line_phase: tensors must be on a CUDA device, got "
+                f"{device}.")
+        if ex.dtype not in _ENTRY:
+            raise TypeError(
+                f"line_phase: unsupported field dtype {ex.dtype}; expected "
+                f"one of {list(_ENTRY)}.")
+        if axis not in FRAMES:
+            raise ValueError(
+                f"line_phase: axis must be 0, 1, or 2; got {axis}.")
+        entry, rdt = _ENTRY[ex.dtype]
+        for name, t in (("hx", hx), ("hy", hy), ("hz", hz)):
+            if not isinstance(t, torch.Tensor) or t.dim() != 1:
+                raise ValueError(f"line_phase: {name} must be a 1-D tensor.")
+        nx, ny, nz = cells = (hx.numel(), hy.numel(), hz.numel())
+        if min(cells) < 2:
+            raise _cells_parity_error(cells, None)
+        shx, shy, shz = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                         (nx + 1, ny + 1, nz))
+        for name, t, shape, dt in (
+                ("ex", ex, shx, ex.dtype), ("ey", ey, shy, ex.dtype),
+                ("ez", ez, shz, ex.dtype), ("sx", sx, shx, ex.dtype),
+                ("sy", sy, shy, ex.dtype), ("sz", sz, shz, ex.dtype),
+                ("eta_x", eta_x, cells, ex.dtype),
+                ("eta_y", eta_y, cells, ex.dtype),
+                ("eta_z", eta_z, cells, ex.dtype),
+                ("zeta", zeta, cells, rdt),
+                ("hx", hx, (nx,), rdt), ("hy", hy, (ny,), rdt),
+                ("hz", hz, (nz,), rdt)):
+            _check(name, t, device, dt, shape)
+
+        frame, strides, self._lines = line_geometry(
+            cells, (ex.stride(), ey.stride(), ez.stride(), zeta.stride()),
+            axis)
+        self._geo = (ctypes.c_int64 * 15)(*frame, *strides)
+        self._scratch = torch.empty(
+            max(frame[0] - 1, 1) * SCRATCH_VALUES
+            * max(self._lines.values()), dtype=ex.dtype, device=device)
+        tp = FRAMES[axis]
+        e, s = (ex, ey, ez), (sx, sy, sz)
+        eta, h = (eta_x, eta_y, eta_z), (hx, hy, hz)
+        # The tensors are referenced for as long as their pointers are.
+        self._tensors = (*(e[r] for r in tp), *(s[r] for r in tp),
+                         *(eta[r] for r in tp), zeta, *(h[r] for r in tp),
+                         self._scratch)
+        self._args = (*(_ptr(t) for t in self._tensors),
+                      ctypes.addressof(self._geo))
+        self._fn = _func(entry)
+        self._device = device
+        self._what = f"cells {cells}, axis {axis}, {ex.dtype}"
+        self._cells = cells
+
+    def launch(self, p1, p2):
+        """Relax the lines of transverse parity (p1, p2), in place, on
+        the device's current stream."""
+        global LAUNCHES
+        nlines = self._lines.get((p1, p2))
+        if nlines is None:
+            raise _cells_parity_error(self._cells, (p1, p2))
+        if nlines == 0:
+            return                     # Empty phase: no launch of 0 blocks.
+        stream = torch.cuda.current_stream(self._device).cuda_stream
+        if torch.cuda.current_device() == self._device.index:
+            err = self._fn(*self._args, p1, p2, stream)
+        else:
+            with torch.cuda.device(self._device):
+                err = self._fn(*self._args, p1, p2, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"line_phase: kernel launch failed with cudaError {err} "
+                f"({self._what}, parity {(p1, p2)}).")
+        LAUNCHES += 1
+
+
 def gauss_seidel_line_phase_cuda(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
                                  eta_z, zeta, hx, hy, hz, p1, p2, axis):
     """Relax the lines along ``axis`` of transverse parity (p1, p2).
@@ -99,69 +234,8 @@ def gauss_seidel_line_phase_cuda(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
     sources and eta share one dtype (complex64, complex128, float32 or
     float64), zeta and the widths are real of the same precision.
     Raises on anything else, on a failed build and on a failed launch.
+    One plan (:class:`LinePlan`) and one launch.
     """
-    global LAUNCHES
-    device = ex.device
-    if device.type != "cuda":
-        raise ValueError(
-            f"line_phase: tensors must be on a CUDA device, got {device}.")
-    if ex.dtype not in _ENTRY:
-        raise TypeError(
-            f"line_phase: unsupported field dtype {ex.dtype}; expected one "
-            f"of {list(_ENTRY)}.")
-    if axis not in FRAMES:
-        raise ValueError(f"line_phase: axis must be 0, 1, or 2; got {axis}.")
-    entry, rdt = _ENTRY[ex.dtype]
-    for name, t in (("hx", hx), ("hy", hy), ("hz", hz)):
-        if not isinstance(t, torch.Tensor) or t.dim() != 1:
-            raise ValueError(f"line_phase: {name} must be a 1-D tensor.")
-    nx, ny, nz = hx.numel(), hy.numel(), hz.numel()
-    if min(nx, ny, nz) < 2 or p1 not in (0, 1) or p2 not in (0, 1):
-        raise ValueError(
-            f"line_phase: need >= 2 cells per axis and parities in "
-            f"{{0, 1}}; got cells {(nx, ny, nz)}, parity {(p1, p2)}.")
-    shx, shy, shz = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
-                     (nx + 1, ny + 1, nz))
-    cell = (nx, ny, nz)
-    for name, t, shape, dt in (
-            ("ex", ex, shx, ex.dtype), ("ey", ey, shy, ex.dtype),
-            ("ez", ez, shz, ex.dtype), ("sx", sx, shx, ex.dtype),
-            ("sy", sy, shy, ex.dtype), ("sz", sz, shz, ex.dtype),
-            ("eta_x", eta_x, cell, ex.dtype),
-            ("eta_y", eta_y, cell, ex.dtype),
-            ("eta_z", eta_z, cell, ex.dtype), ("zeta", zeta, cell, rdt),
-            ("hx", hx, (nx,), rdt), ("hy", hy, (ny,), rdt),
-            ("hz", hz, (nz,), rdt)):
-        _check(name, t, device, dt, shape)
-
-    # The frame: lines along frame x, of NX cells; the transverse frame
-    # axes y and z carry the parities (p1, p2).
-    tp = FRAMES[axis]
-    e, s = (ex, ey, ez), (sx, sy, sz)
-    eta, h = (eta_x, eta_y, eta_z), (hx, hy, hz)
-    fe, fs = [e[r] for r in tp], [s[r] for r in tp]
-    feta, fh = [eta[r] for r in tp], [h[r] for r in tp]
-    NX, NY, NZ = (t.numel() for t in fh)
-    nlines = ((NY - p1) // 2) * ((NZ - p2) // 2)
-    if nlines == 0:
-        return ex, ey, ez          # Empty phase: no launch of 0 blocks.
-
-    # Strides (in elements) of the permuted views: frame edge arrays of
-    # the x, y and z role, then the cell arrays.
-    strides = [st for t in (*fe, zeta) for st in t.permute(tp).stride()]
-    geo = (ctypes.c_int64 * 15)(NX, NY, NZ, *strides)
-    scratch = torch.empty(max(NX - 1, 1) * SCRATCH_VALUES * nlines,
-                          dtype=ex.dtype, device=device)
-
-    fn = _func(entry)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(_ptr(t) for t in (*fe, *fs, *feta, zeta, *fh, scratch)),
-                 ctypes.addressof(geo), p1, p2, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"line_phase: kernel launch failed with cudaError {err} "
-            f"(cells {(nx, ny, nz)}, axis {axis}, parity {(p1, p2)}, "
-            f"{ex.dtype}).")
-    LAUNCHES += 1
+    LinePlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta, hx, hy, hz,
+             axis).launch(p1, p2)
     return ex, ey, ez

@@ -21,7 +21,9 @@ banded system is solved as a block-tridiagonal system of 5x5 blocks
 (the curl-curl operator is covariant under coordinate permutation).
 :func:`gauss_seidel_line_phase` dispatches like the point phase: CPU
 tensors run :func:`_line_relax_phase_torch`, CUDA tensors the
-``line_phase`` kernel (:mod:`emg3d_tpu_torch.ops.line_phase`).
+``line_phase`` kernel (:mod:`emg3d_tpu_torch.ops.line_phase`);
+:func:`gauss_seidel_line` launches all phases of a smoothing call from
+one validated plan.
 
 Phases update the field tensors IN PLACE.
 """
@@ -421,8 +423,18 @@ def gauss_seidel_line(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
                       hx, hy, hz, nu, axis):
     """Line relaxation along ``axis``: nu sweeps, alternating order.
 
-    Updates ``ex``, ``ey``, ``ez`` in place and returns them.
+    Updates ``ex``, ``ey``, ``ez`` in place and returns them.  CUDA
+    tensors are validated once: one ``line_phase.LinePlan`` launches all
+    nu x 4 phases.
     """
+    if ex.device.type != "cpu":
+        plan = line_phase.LinePlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
+                                   eta_z, zeta, hx, hy, hz, axis)
+        shape = (hx.numel(), hy.numel(), hz.numel())
+        for sweep in range(nu):
+            for c in line_phase_colors(shape, axis, sweep % 2 == 1):
+                plan.launch(*c)
+        return ex, ey, ez
     fields = (ex, ey, ez)
     for sweep in range(nu):
         fields = gauss_seidel_line_sweep(

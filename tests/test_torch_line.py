@@ -163,3 +163,49 @@ def test_gauss_seidel_line_nu2():
         *_jax(prob), 2, 1)
     out = t_smoothers.gauss_seidel_line(*_torch(prob), 2, 1)
     _close(out, ref)
+
+
+def _cpu_operands(shape):
+    nx, ny, nz = shape
+    edges = [(nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1), (nx + 1, ny + 1, nz)]
+    e = [torch.zeros(s, dtype=torch.complex64) for s in edges]
+    s = [torch.zeros(s, dtype=torch.complex64) for s in edges]
+    eta = [torch.zeros(shape, dtype=torch.complex64) for _ in range(3)]
+    h = [torch.ones(n) for n in shape]
+    return [*e, *s, *eta, torch.ones(shape), *h]
+
+
+@pytest.mark.parametrize('shape', [(9, 6, 7), (2, 5, 4), (16, 3, 2)])
+@pytest.mark.parametrize('axis', [0, 1, 2])
+def test_line_geometry(axis, shape):
+    """The frame the kernel is launched with: the strides of the permuted
+    views and, per parity, the lines the 4-color order implies."""
+    args = _cpu_operands(shape)
+    ex, ey, ez, zeta = args[0], args[1], args[2], args[9]
+    frame, strides, lines = line_phase.line_geometry(
+        shape, (ex.stride(), ey.stride(), ez.stride(), zeta.stride()), axis)
+    tp = line_phase.FRAMES[axis]
+    assert frame == tuple(shape[r] for r in tp)
+    fe = [(ex, ey, ez)[r] for r in tp]
+    assert list(strides) == [st for t in (*fe, zeta)
+                             for st in t.permute(tp).stride()]
+    # A parity the sweep skips has no lines; the others have one line per
+    # interior transverse node of that parity.
+    colors = t_smoothers.line_phase_colors(shape, axis, False)
+    assert set(lines) == set(itertools.product((0, 1), repeat=2))
+    for (p1, p2), n in lines.items():
+        assert (n > 0) == ((p1, p2) in colors)
+        assert n == (len(range(1 + p1, frame[1], 2))
+                     * len(range(1 + p2, frame[2], 2)))
+
+
+@pytest.mark.parametrize('call', ['plan', 'wrapper'])
+def test_line_plan_rejects_cpu_tensors(call):
+    args = _cpu_operands((4, 3, 5))
+    launches = line_phase.LAUNCHES
+    with pytest.raises(ValueError, match='CUDA device, got cpu'):
+        if call == 'plan':
+            line_phase.LinePlan(*args, 1)
+        else:
+            line_phase.gauss_seidel_line_phase_cuda(*args, 0, 0, 1)
+    assert line_phase.LAUNCHES == launches
