@@ -48,15 +48,40 @@ Phases (any failure raises, and the script exits non-zero):
    to 1e-10) and plain F-cycles on a 32^3 stretched grid (same cycles,
    fields to 1e-10).
 
+8. The survey path (``northstar.salt_survey(128, 8)``: the salt-class
+   model on 128^3 cells, 8 sources, 24 receivers, 1 Hz) through
+   ``emg3d_tpu_torch.Simulation`` with no device given, both launch
+   counts set to 0 just before and read just after: synthetic data with
+   seeded noise as observed data; on a model with the salt's resistivity
+   times 0.8 the misfit and the adjoint-state gradient (8 forward and 8
+   adjoint solves); ``jvec`` of a box inside the salt (8 solves).  Every
+   task must converge below 1e-6 with the default solver through both
+   kernels with no plain call on CUDA; data, misfit, gradient and
+   ``jvec`` finite, the gradient not zero and, in the layers that cut
+   the salt, largest at its flank (with respect to conductivity:
+   inside it).
+9. Adjointness on the card: <w, Re(J v)> against <v, J^T w> on a 32^3
+   stretched triaxial ``LgResistivity`` survey of 2 sources x 2
+   frequencies, ``tol`` and ``tol_gradient`` 1e-9 in the card's default
+   working precision (complex64 multigrid under complex128 Krylov
+   vectors), to ADJOINT_RTOL.
+10. Card against CPU in complex128 on a 16^3 survey of two sources with
+    electric and magnetic receivers: synthetic data, misfit and gradient
+    to 1e-8 of the largest entry, the same iterations per task, and
+    ``get_magnetic_field`` to 1e-12.  Then ``Simulation.to_file`` and
+    ``from_file`` as ``.npz`` and ``.json``: fields and data equal.
+
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import importlib.util
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -526,26 +551,34 @@ def phase_line_vs_plain(shapes):
     return max_abs_c64, times, bound
 
 
+def kernel_counts(reset=False):
+    """{kernel: (launches, plain calls on CUDA)}; ``reset`` sets them to 0
+    first."""
+    from emg3d_tpu_torch.ops import gs_phase, line_phase
+
+    mods = {"gs_phase": gs_phase, "line_phase": line_phase}
+    if reset:
+        for mod in mods.values():
+            mod.reset_counts()
+    return {k: (m.LAUNCHES, m.PLAIN_CALLS_ON_CUDA) for k, m in mods.items()}
+
+
 def drive(label, problem, kernels, **kw):
     """Solve ``problem`` through ``emg3d_tpu_torch.solve`` with every
     launch count set to 0 just before and read just after; check that it
     converged through each kernel of ``kernels`` and called no plain
     version on CUDA.  Returns {kernel: launches}."""
     from emg3d_tpu_torch import solve
-    from emg3d_tpu_torch.ops import gs_phase, line_phase
 
-    mods = {"gs_phase": gs_phase, "line_phase": line_phase}
     model, sfield = problem
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.reset_counts()
+    kernel_counts(reset=True)
     t0 = time.perf_counter()
     efield, info = solve(model, sfield, return_info=True, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: (m.LAUNCHES, m.PLAIN_CALLS_ON_CUDA)
-              for k, m in mods.items()}
+    counts = kernel_counts()
     cells = int(np.prod(model.shape))
     field = np.asarray(efield.field)
     log(f"[solve] {label} {model.shape}: {dt!r} s, {cells / dt:.0f} "
@@ -635,6 +668,304 @@ def phase_card_vs_cpu():
         check(err <= 1e-10, (label, err))
 
 
+def check_tasks(sim, which, tol):
+    """Every task of ``sim`` converged below ``tol``; returns the (it_ssl,
+    it_mg) of the tasks."""
+    its = []
+    for src, freq in sim._srcfreq:
+        info = sim._dict_get(f"{which}_info", src, freq)
+        if info['exit'] != 0 or not info['rel_error'] < tol:
+            log(f"[survey] {which} {src} {freq} did not converge: "
+                f"{info['exit_message']}, rel_error {info['rel_error']!r}, "
+                f"it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, errors "
+                f"{info['error_at_cycle']}\n{info['log']}")
+        check(info['exit'] == 0, (which, src, freq, info['exit_message']))
+        check(info['rel_error'] < tol, (which, src, freq, info['rel_error']))
+        its.append((info['it_ssl'], info['it_mg']))
+    return its
+
+
+def phase_survey(n=128, nsrc=8):
+    """The salt-class ``n``^3 survey of ``nsrc`` sources.  Returns
+    {kernel: launches} of the whole phase."""
+    from emg3d_tpu_torch import Simulation, northstar
+
+    survey, model, kw = northstar.salt_survey(n, nsrc)
+    kw['tqdm_opts'] = False
+    grid = model.grid
+    cells = int(np.prod(model.shape))
+    salt = northstar.salt_mask(grid)
+    log(f"[survey] salt survey {model.shape}: {cells} cells, {nsrc} sources, "
+        f"{survey.shape[1]} receivers, 1 Hz; salt {int(salt.sum())} cells "
+        f"of {model.property_x[salt].max():.1f} Ohm m, sediments "
+        f"{model.property_x[~salt].min():.2f}-"
+        f"{model.property_x[~salt].max():.2f} Ohm m")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    stages = {}
+
+    def stage(name, nsolves, fn):
+        with northstar.timed_solves() as inside:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        check(len(inside) == nsolves, (name, len(inside), nsolves))
+        stages[name] = (dt, sum(inside))
+        log(f"[survey] {name}: {dt!r} s for {nsolves} solves, {dt / nsolves!r}"
+            f" s per solve, {cells * nsolves / dt:.0f} cells x solves / s; "
+            f"{sum(inside)!r} s inside solve (smallest {min(inside)!r}, "
+            f"largest {max(inside)!r}), {100 * (1 - sum(inside) / dt):.1f} % "
+            f"outside it")
+        return out
+
+    # Forward: synthetic data, with seeded noise, become the observed data.
+    sim = Simulation(survey, model, **kw)
+    check(sim.device == 'cuda', sim.device)
+    stage("forward", nsrc, lambda: sim.compute(
+        observed=True, rng=np.random.default_rng(20)))
+    its = check_tasks(sim, 'efield', 1e-6)
+    observed = np.asarray(sim.data.observed)
+    check(np.all(np.isfinite(np.asarray(sim.data.synthetic))), "synthetic")
+    kept = np.isfinite(observed)
+    check(kept.sum() > observed.size // 2, ("noise cut the data", kept.sum()))
+    log(f"[survey] forward tasks: it_ssl {min(i[0] for i in its)}-"
+        f"{max(i[0] for i in its)}, it_mg {min(i[1] for i in its)}-"
+        f"{max(i[1] for i in its)}; {int(kept.sum())} of {observed.size} "
+        f"data above half the noise floor and kept, |observed| "
+        f"{np.nanmin(np.abs(observed)):.3e}-"
+        f"{np.nanmax(np.abs(observed)):.3e}")
+
+    # Misfit and gradient of a model whose salt is 0.8 times as resistive.
+    sim2 = Simulation(sim.survey.copy(), northstar.salt_model(
+        grid, salt_scale=0.8), **kw)
+    del sim
+
+    def misfit_and_gradient():
+        return sim2.misfit, sim2.gradient
+
+    misfit, grad = stage("misfit and gradient", 2 * nsrc,
+                         misfit_and_gradient)
+    its_f = check_tasks(sim2, 'efield', 1e-6)
+    its_b = check_tasks(sim2, 'bfield', 1e-6)
+    log(f"[survey] gradient tasks: forward it_ssl "
+        f"{min(i[0] for i in its_f)}-{max(i[0] for i in its_f)}, it_mg "
+        f"{min(i[1] for i in its_f)}-{max(i[1] for i in its_f)}; adjoint "
+        f"it_ssl {min(i[0] for i in its_b)}-{max(i[0] for i in its_b)}, "
+        f"it_mg {min(i[1] for i in its_b)}-{max(i[1] for i in its_b)}")
+    check(np.isfinite(misfit) and misfit > 0, misfit)
+    check(grad.shape == (n, n, n), grad.shape)
+    check(np.all(np.isfinite(grad)) and np.abs(grad).max() > 0, "gradient")
+
+    # Where the gradient is largest.  Overall it is at a source or a
+    # receiver, and it falls off with depth, so the salt is looked for
+    # layer by layer: in every layer of cells that cuts the salt, the
+    # largest |gradient| must lie at the salt's flank, within 3 cells of
+    # it (inside, the gradient with respect to resistivity carries the
+    # factor 1 / rho^2 and is small); the gradient with respect to
+    # conductivity, - rho^2 times it, must be largest inside the salt
+    # below z = -1200 m, just above the salt's top.
+    def argmax(a):
+        return tuple(int(i) for i in np.unravel_index(
+            np.argmax(np.abs(a)), a.shape))
+
+    def xyz(i):
+        return tuple(float(c[j]) for c, j in zip(
+            (grid.cell_centers_x, grid.cell_centers_y, grid.cell_centers_z),
+            i))
+
+    def near_salt(i, reach=3):
+        return bool(salt[tuple(slice(max(j - reach, 0), j + reach + 1)
+                               for j in i)].any())
+
+    i_all = argmax(grad)
+    layers = [k for k in range(n) if salt[:, :, k].any()]
+    at_flank = [near_salt((*argmax(grad[:, :, k]), k)) for k in layers]
+    deep = grid.cell_centers_z < -1200.0
+    gsigma = np.where(deep[None, None, :],
+                      -sim2.model.property_x ** 2 * grad, 0.0)
+    i_sig = argmax(gsigma)
+    log(f"[survey] misfit {misfit!r}; |gradient| largest overall "
+        f"{abs(grad[i_all])!r} at cell {i_all} {xyz(i_all)} m; in "
+        f"{sum(at_flank)} of the {len(layers)} layers that cut the salt "
+        f"(z = {grid.cell_centers_z[layers[0]]} to "
+        f"{grid.cell_centers_z[layers[-1]]} m) the largest of the layer "
+        f"lies within 3 cells of the salt; the gradient with respect to "
+        f"conductivity below z = -1200 m is largest, {abs(gsigma[i_sig])!r}"
+        f", at cell {i_sig} {xyz(i_sig)} m, in the salt: "
+        f"{bool(salt[i_sig])}")
+    check(len(layers) > 0 and sum(at_flank) >= 0.9 * len(layers),
+          ("gradient largest away from the salt's flank", at_flank))
+    check(bool(salt[i_sig]), ("conductivity gradient largest outside the "
+                              "salt", i_sig))
+
+    # jvec of a box in the middle of the salt.
+    jvec = stage("jvec", nsrc, lambda: sim2.jvec(northstar.salt_box(grid)))
+    check(jvec.shape == survey.shape, jvec.shape)
+    check(np.all(np.isfinite(jvec)) and np.abs(jvec).max() > 0, "jvec")
+    jvec = np.asarray(jvec)
+    log(f"[survey] |jvec| largest {np.abs(jvec).max()!r}, relative to the "
+        f"data there {np.nanmax(np.abs(jvec / observed))!r}")
+
+    counts = kernel_counts()
+    total, inside = (sum(s[i] for s in stages.values()) for i in (0, 1))
+    nsolves = 4 * nsrc
+    log(f"[survey] whole path: {total!r} s for {nsolves} solves "
+        f"({total / nsolves!r} s per solve, {cells * nsolves / total:.0f} "
+        f"cells x solves / s), {100 * (1 - inside / total):.1f} % outside "
+        f"solve (forward pass alone "
+        f"{100 * (1 - stages['forward'][1] / stages['forward'][0]):.1f} %); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"launches {({k: c[0] for k, c in counts.items()})} "
+        f"({({k: c[0] // nsolves for k, c in counts.items()})} per solve), "
+        f"plain calls on cuda {({k: c[1] for k, c in counts.items()})}")
+    for name, (launches, plain) in counts.items():
+        check(launches > 0, (name, "not launched on the survey path"))
+        check(plain == 0, (name, "plain calls on CUDA", plain))
+    return {k: c[0] for k, c in counts.items()}
+
+
+# Limit of |<w, Re(J v)> - <v, J^T w>| over the mean of the two, four
+# times what an H100 gave for the problem of ``phase_adjoint``.
+ADJOINT_RTOL = 1.3e-8
+
+
+def small_survey(n, seed, mapping, nfreq):
+    """A stretched triaxial ``n``^3 survey centred on its two sources,
+    with two electric receivers and a magnetic one."""
+    from emg3d_tpu_torch import (Model, RxElectricPoint, RxMagneticPoint,
+                                 Survey, TensorMesh, TxElectricDipole, maps)
+
+    rng = np.random.default_rng(seed)
+    h = [rng.uniform(60.0, 140.0, n) for _ in range(3)]
+    grid = TensorMesh(h, origin=tuple(-0.5 * x.sum() for x in h))
+    shape = grid.shape_cells
+    pmap = getattr(maps, 'Map' + mapping)()
+    model = Model(grid, mapping=mapping, **{
+        f"property_{d}": pmap.forward(1.0 / rng.uniform(lo, hi, shape))
+        for d, lo, hi in (('x', 1, 3), ('y', 1, 4), ('z', 2, 6))})
+    w = 100.0 * n / 16
+    survey = Survey(
+        sources=[TxElectricDipole((x, 0., 0., 20., 10.))
+                 for x in (-w, w)],
+        receivers=[RxElectricPoint((3 * w, w, 0., 0., 0.)),
+                   RxElectricPoint((-2 * w, -2 * w, w / 2, 90., 0.)),
+                   RxMagneticPoint((2 * w, -w, w, 90., 0.))],
+        frequencies=[0.5, 1.0][:nfreq], relative_error=0.05,
+        noise_floor=1e-17)
+    return survey, model
+
+
+def phase_adjoint():
+    from emg3d_tpu_torch import Simulation
+
+    survey, model = small_survey(32, 32, 'LgResistivity', 2)
+    sim = Simulation(
+        survey, model, gridding='same', receiver_interpolation='linear',
+        tqdm_opts=False, verb=-1,
+        solver_opts={'tol': 1e-9, 'tol_gradient': 1e-9})
+    t0 = time.perf_counter()
+    sim.compute(observed=True, add_noise=False)
+    its = check_tasks(sim, 'efield', 1e-9)
+    rng = np.random.default_rng(33)
+    v = rng.standard_normal((3, *model.shape))
+    w = rng.standard_normal(survey.shape)
+    lhs = float(np.sum(w * sim.jvec(v).real))
+    rhs = float(np.sum(v * sim.jtvec(w)))
+    check_tasks(sim, 'bfield', 1e-9)
+    err = abs(lhs - rhs) / (0.5 * (abs(lhs) + abs(rhs)))
+    log(f"[adjoint] 32^3 stretched triaxial LgResistivity, 2 sources x 2 "
+        f"frequencies, tol and tol_gradient 1e-9, working precision "
+        f"complex64 (the card's default): forward it_ssl/it_mg {its}; "
+        f"<w, Re(J v)> {lhs!r}, <v, J^T w> {rhs!r}, relative difference "
+        f"{err!r} (limit {ADJOINT_RTOL:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(np.isfinite(lhs) and lhs != 0.0, lhs)
+    check(err <= ADJOINT_RTOL, ("adjointness", err))
+
+
+def phase_survey_card_vs_cpu():
+    from emg3d_tpu_torch import Simulation, get_magnetic_field
+
+    sims = {}
+    for label, device in (('card', None), ('cpu', 'cpu')):
+        survey, model = small_survey(16, 16, 'Resistivity', 1)
+        sim = Simulation(
+            survey, model, gridding='same', receiver_interpolation='linear',
+            tqdm_opts=False, verb=-1, device=device,
+            solver_opts={'tol': 1e-6, 'dtype': torch.complex128})
+        t0 = time.perf_counter()
+        # Observed data: the model's own responses, 10 % larger.
+        sim.compute(observed=True, add_noise=False)
+        forward = {src: sim.get_efield_info(src, freq)
+                   for src, freq in sim._srcfreq}
+        sim.data['observed'] = sim.data.observed * 1.1
+        _ = sim.gradient
+        sims[label] = (sim, time.perf_counter() - t0, forward)
+    (gpu, t_gpu, f_gpu), (cpu, t_cpu, f_cpu) = sims['card'], sims['cpu']
+    check((gpu.device, cpu.device) == ('cuda', 'cpu'), (gpu.device,
+                                                        cpu.device))
+
+    def diff(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    errs = {"observed": diff(gpu.data.observed, cpu.data.observed),
+            "synthetic": diff(gpu.data.synthetic, cpu.data.synthetic),
+            "misfit": diff(gpu.misfit, cpu.misfit),
+            "gradient": diff(gpu.gradient, cpu.gradient)}
+    its = {}
+    for src, freq in gpu._srcfreq:
+        for which, a, b in (
+                ('efield', f_gpu[src], f_cpu[src]),
+                ('bfield', *(s._dict_get('bfield_info', src, freq)
+                             for s in (gpu, cpu)))):
+            its[f"{which} {src}"] = (a['it_ssl'], a['it_mg'])
+            check(a['exit'] == b['exit'] == 0 and a['it_ssl'] > 0,
+                  (which, src))
+            check((a['it_ssl'], a['it_mg']) == (b['it_ssl'], b['it_mg']),
+                  (which, src, a['it_ssl'], b['it_ssl'], a['it_mg'],
+                   b['it_mg']))
+    efield = cpu.get_efield('TxED-1', 'f-1')
+    h_gpu = get_magnetic_field(cpu.model, efield)
+    h_cpu = get_magnetic_field(cpu.model, efield, device='cpu')
+    errs["get_magnetic_field"] = diff(h_gpu.field, h_cpu.field)
+    log(f"[survey parity] 16^3 stretched triaxial survey, 2 sources, "
+        f"electric and magnetic receivers, complex128: card {t_gpu:.2f} s, "
+        f"cpu {t_cpu:.2f} s; (it_ssl, it_mg) per task on both {its}; largest "
+        f"differences relative to the largest entry {errs}")
+    check(np.abs(h_cpu.field).max() > 0 and gpu.misfit > 0, "zero")
+    for name, err in errs.items():
+        check(err <= (1e-12 if name == "get_magnetic_field" else 1e-8),
+              (name, err))
+
+    # Round trip through files in a temporary directory (.npz and .json
+    # need no h5py; .h5 and file_dir are held by the CPU tests).
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in ('npz', 'json'):
+            fname = str(pathlib.Path(tmp) / f"simulation.{ext}")
+            gpu.to_file(fname, what='computed')
+            back = Simulation.from_file(fname)
+            check(back.device == 'cuda' and back.solver_opts['dtype']
+                  == 'complex128', (ext, back.device, back.solver_opts))
+            for name in ('observed', 'synthetic'):
+                check(np.array_equal(np.asarray(back.data[name]),
+                                     np.asarray(gpu.data[name])), (ext, name))
+            check(np.array_equal(back.gradient, gpu.gradient), ext)
+            for which in ('efield', 'bfield'):
+                for src, freq in gpu._srcfreq:
+                    check(np.array_equal(
+                        back._dict_get(which, src, freq).field,
+                        gpu._dict_get(which, src, freq).field),
+                        (ext, which, src))
+            log(f"[round trip] Simulation.to_file/from_file .{ext}: data, "
+                f"gradient and fields equal")
+    log(f"[round trip] h5py can be imported here: "
+        f"{importlib.util.find_spec('h5py') is not None}")
+
+
 def main():
     smi, name = phase_card()
     phase_build()
@@ -643,7 +974,10 @@ def main():
     gs_abs, gs_times, gs_bound = phase_gs_vs_plain(gs_shapes)
     ln_abs, ln_times, ln_bound = phase_line_vs_plain(line_shapes)
     paths = phase_main_paths(problems)
+    paths["salt_survey_128_8src"] = phase_survey()
+    phase_adjoint()
     phase_card_vs_cpu()
+    phase_survey_card_vs_cpu()
     measured = {"gs_phase": (gs_abs, gs_times, gs_bound),
                 "line_phase": (ln_abs, ln_times, ln_bound)}
     record = {"kernels": [dict(

@@ -11,18 +11,37 @@ tests hold against emg3d_tpu.
 
 This package imports neither ``jax`` nor ``emg3d_tpu``.  The public API
 mirrors emg3d_tpu (reference emg3d/__init__.py:18-33) for the ported
-slice: ``solve`` with the default MG-preconditioned BiCGSTAB,
+slices: ``solve`` with the default MG-preconditioned BiCGSTAB,
 semicoarsening and line relaxation, or stand-alone multigrid
-(``plain=True``).
+(``plain=True``); ``Survey`` and ``Simulation`` (forward fields, misfit,
+adjoint-state gradient, ``jvec``/``jtvec``) over the sequential task
+engine; magnetic fields; ``save``/``load``; the ``Fourier`` time-domain
+transform.
 """
 
-from emg3d_tpu_torch.fields import Field, get_receiver, get_source_field
-from emg3d_tpu_torch.meshes import TensorMesh
+# ``convert`` is, as in emg3d_tpu, the function of ``io``; the module
+# ``emg3d_tpu_torch.convert`` is imported first, so that no later import of
+# it rebinds the name (``from emg3d_tpu_torch.convert import ...`` works).
+from emg3d_tpu_torch.convert import from_emg3d_tpu
+from emg3d_tpu_torch.electrodes import (
+    TxElectricPoint, TxMagneticPoint, TxElectricDipole, TxMagneticDipole,
+    TxElectricWire, RxElectricPoint, RxMagneticPoint)
+from emg3d_tpu_torch.fields import (
+    Field, get_receiver, get_source_field, get_magnetic_field)
+from emg3d_tpu_torch.io import save, load, convert
+from emg3d_tpu_torch.meshes import TensorMesh, construct_mesh
 from emg3d_tpu_torch.models import Model
+from emg3d_tpu_torch.simulations import Simulation
 from emg3d_tpu_torch.solver import solve, solve_source
+from emg3d_tpu_torch.surveys import Survey
+from emg3d_tpu_torch.time import Fourier
 from emg3d_tpu_torch.utils import Report, __version__
 
 __all__ = [
-    'TensorMesh', 'Model', 'Field', 'get_source_field', 'get_receiver',
-    'solve', 'solve_source', 'Report', '__version__',
+    'TxElectricPoint', 'TxMagneticPoint', 'TxElectricDipole',
+    'TxMagneticDipole', 'TxElectricWire', 'RxElectricPoint',
+    'RxMagneticPoint', 'Field', 'get_source_field', 'get_receiver',
+    'get_magnetic_field', 'save', 'load', 'convert', 'TensorMesh',
+    'construct_mesh', 'Model', 'Simulation', 'solve', 'solve_source',
+    'Survey', 'Fourier', 'Report', 'from_emg3d_tpu', '__version__',
 ]

@@ -19,7 +19,7 @@ complex, frequency<0 [Laplace] -> real).
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "working_dtypes", "solve_dtype"]
+__all__ = ["resolve_device", "working_dtypes", "dtype_name", "solve_dtype"]
 
 
 def resolve_device(device=None):
@@ -39,19 +39,32 @@ def resolve_device(device=None):
     return device
 
 
+_WORKING_DTYPES = {
+    "complex64": torch.complex64, "complex128": torch.complex128,
+    "float32": torch.float32, "float64": torch.float64,
+}
+
+
+def dtype_name(dtype):
+    """The name ('complex64', ...) of a working dtype given as a torch
+    dtype or as its name, with or without ``torch.`` in front; the form
+    in which a dtype is stored to a file."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in _WORKING_DTYPES:
+        raise ValueError(f"Unsupported working dtype {dtype}.")
+    return name
+
+
 def working_dtypes(device, is_complex, dtype=None):
     """(field dtype, real dtype) of the device tensors of a solve.
 
-    ``dtype`` (a torch complex or real dtype, or None) overrides the
-    device default; its precision sets both entries.
+    ``dtype`` (a torch complex or real dtype or its name, or None)
+    overrides the device default; its precision sets both entries.
     """
     if dtype is None:
         double = device.type != "cuda"
     else:
-        double = dtype in (torch.complex128, torch.float64)
-        if dtype not in (torch.complex64, torch.complex128, torch.float32,
-                         torch.float64):
-            raise ValueError(f"Unsupported working dtype {dtype}.")
+        double = dtype_name(dtype) in ("complex128", "float64")
     rdt = torch.float64 if double else torch.float32
     cdt = torch.complex128 if double else torch.complex64
     return (cdt if is_complex else rdt), rdt

@@ -1,7 +1,8 @@
 """Fields: electric/magnetic field container, source fields, receivers.
 
-Copy of ``emg3d_tpu.fields`` for the PyTorch port (numpy only), without
-``get_magnetic_field``; rebuild of the reference's emg3d/fields.py.
+Copy of ``emg3d_tpu.fields`` for the PyTorch port: numpy only, apart from
+``get_magnetic_field``, whose curl runs in PyTorch on the device; rebuild
+of the reference's emg3d/fields.py.
 
 The ``Field`` container keeps the reference's layout (one 1-D array over all
 edges with Fortran-ordered 3-D views, emg3d/fields.py:40-383) for I/O and
@@ -20,9 +21,10 @@ from copy import deepcopy
 import numpy as np
 import scipy as sp
 
-from emg3d_tpu_torch import config, electrodes, maps, meshes, utils
+from emg3d_tpu_torch import config, electrodes, maps, meshes, models, utils
 
-__all__ = ["Field", "get_source_field", "get_receiver"]
+__all__ = ["Field", "get_source_field", "get_receiver",
+           "get_magnetic_field"]
 
 
 def __dir__():
@@ -298,6 +300,42 @@ def get_receiver(field, receiver, method="cubic"):
     resp[ind] = np.nan
 
     return utils.EMArray(resp.reshape(shape, order="F"))
+
+
+def get_magnetic_field(model, efield, device=None):
+    """Return the magnetic field H = (curl E) / (zeta * smu0) on the faces.
+
+    Faraday's law on the dual grid (reference fields.py:617-659); the curl
+    is :func:`emg3d_tpu_torch.ops.operator.edge_curl_factor`, evaluated in
+    the host precision (complex128/float64) on ``device``.  The default
+    (None) is the CUDA card; without a card it raises ``RuntimeError``.
+    Pass ``device='cpu'`` to run on the CPU.  Returns a host ``Field``.
+    """
+    import torch
+
+    from emg3d_tpu_torch.ops import operator
+
+    device = config.resolve_device(device)
+
+    def dev(a):
+        # Field components are Fortran-ordered views.
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    hfield = Field(efield.grid, frequency=efield._frequency, electric=False)
+
+    vmodel = models.VolumeModel(model, efield)
+    zeta = vmodel.zeta / efield.smu0
+
+    mx, my, mz = operator.edge_curl_factor(
+        dev(efield.fx), dev(efield.fy), dev(efield.fz),
+        *(dev(np.asarray(h, dtype=np.float64)) for h in efield.grid.h),
+        dev(zeta))
+
+    hfield.fx = mx.cpu().numpy()
+    hfield.fy = my.cpu().numpy()
+    hfield.fz = mz.cpu().numpy()
+
+    return hfield
 
 
 def _point_vector(grid, coordinates):

@@ -1,8 +1,8 @@
 """Matrix-free curl-curl operator on the staggered Yee grid (PyTorch).
 
 Port of ``emg3d_tpu.ops.operator`` (``amat_x``, ``residual``,
-``residual_norm``): the reference's scalar triple loop (``amat_x``,
-emg3d/core.py:57-206) as a vectorized 1-halo stencil over whole field
+``residual_norm``, ``edge_curl_factor``): the reference's scalar triple
+loop (``amat_x``, emg3d/core.py:57-206) as a vectorized 1-halo stencil over whole field
 tensors: two nested discrete curls with dual-grid averaged material
 parameters plus the sigma term.
 
@@ -14,7 +14,8 @@ nodes (iy=ny / iz=nz planes etc.) are never touched.
 
 import torch
 
-__all__ = ["amat_x", "residual", "residual_norm"]
+__all__ = ["amat_x", "residual", "residual_norm",
+           "edge_curl_factor"]
 
 
 def _first(p, axis):
@@ -131,3 +132,42 @@ def residual_norm(rx, ry, rz):
         torch.sum(torch.abs(rx) ** 2)
         + torch.sum(torch.abs(ry) ** 2)
         + torch.sum(torch.abs(rz) ** 2))
+
+
+def edge_curl_factor(ex, ey, ez, hx, hy, hz, zeta):
+    """curl E on the faces, divided by dual-grid-averaged factor arrays.
+
+    Used by ``get_magnetic_field``: H = curl E / (zeta * smu0), where the
+    input ``zeta`` here is V/(mu_r*smu0) (reference fields.py:941-1009).
+    Boundary faces (first/last face of each orientation) are zero.
+    """
+    ihx = (1.0 / hx)[:, None, None]
+    ihy = (1.0 / hy)[None, :, None]
+    ihz = (1.0 / hz)[None, None, :]
+
+    fx = ((ez[:, 1:, :] - ez[:, :-1, :]) * ihy
+          - (ey[:, :, 1:] - ey[:, :, :-1]) * ihz)
+    fy = ((ex[:, :, 1:] - ex[:, :, :-1]) * ihz
+          - (ez[1:, :, :] - ez[:-1, :, :]) * ihx)
+    fz = ((ey[1:, :, :] - ey[:-1, :, :]) * ihx
+          - (ex[:, 1:, :] - ex[:, :-1, :]) * ihy)
+
+    # Dual-grid widths h[i-1] + h[i], clamped, at node positions.
+    dx = _pair_clamped(hx, 0)[:, None, None]
+    dy = _pair_clamped(hy, 0)[None, :, None]
+    dz = _pair_clamped(hz, 0)[None, None, :]
+
+    mx = fx * _pair_clamped(zeta, 0) / (
+        dx * hy[None, :, None] * hz[None, None, :])
+    my = fy * _pair_clamped(zeta, 1) / (
+        hx[:, None, None] * dy * hz[None, None, :])
+    mz = fz * _pair_clamped(zeta, 2) / (
+        hx[:, None, None] * hy[None, :, None] * dz)
+
+    # Reference leaves faces at index 0 (and the never-touched last face)
+    # at zero (fields.py:1004-1009).
+    mx[0, :, :] = mx[-1, :, :] = 0
+    my[:, 0, :] = my[:, -1, :] = 0
+    mz[:, :, 0] = mz[:, :, -1] = 0
+
+    return mx, my, mz

@@ -11,7 +11,9 @@ on the same card, norm-wise per output array on the entries the phase
 changed: complex128/float64 to 1e-12 (same arithmetic, another order and
 FMA contraction), complex64/float32 to 1e-5 for ``gs_phase`` and to 1e-6
 for ``line_phase`` (four times its measured error, so that a lost digit
-shows).
+shows).  The survey layer on the card is held against the CPU path in
+complex128: ``get_magnetic_field`` to 1e-12 and the gradient of a 16^3
+``Simulation`` to 1e-8 of the largest entry.
 """
 
 import itertools
@@ -209,3 +211,64 @@ def test_line_plans_do_not_share_scratch(cuda):
         assert torch.equal(a, c) and torch.equal(b, c)
     with pytest.raises(ValueError, match='parit'):
         plan_a.launch(2, 0)
+
+
+def _survey(n, seed=16):
+    """A stretched triaxial n^3 survey centred on its two sources."""
+    import emg3d_tpu_torch as t3
+
+    rng = np.random.default_rng(seed)
+    h = [rng.uniform(60.0, 140.0, n) for _ in range(3)]
+    grid = t3.TensorMesh(h, origin=tuple(-0.5 * x.sum() for x in h))
+    shape = grid.shape_cells
+    model = t3.Model(grid, property_x=rng.uniform(1, 3, shape),
+                     property_y=rng.uniform(1, 4, shape),
+                     property_z=rng.uniform(2, 6, shape),
+                     mapping='Resistivity')
+    w = 100.0 * n / 16
+    survey = t3.Survey(
+        sources=[t3.TxElectricDipole((x, 0., 0., 20., 10.))
+                 for x in (-w, w)],
+        receivers=[t3.RxElectricPoint((3 * w, w, 0., 0., 0.)),
+                   t3.RxMagneticPoint((2 * w, -w, w, 90., 0.))],
+        frequencies=[1.0], relative_error=0.05, noise_floor=1e-17)
+    return survey, model
+
+
+@pytest.mark.cuda
+def test_magnetic_field_card_equals_cpu(cuda):
+    import emg3d_tpu_torch as t3
+
+    _, model = _survey(12)
+    rng = np.random.default_rng(3)
+    n = model.grid.n_edges
+    efield = t3.Field(model.grid, frequency=1.0, data=(
+        rng.normal(size=n) + 1j * rng.normal(size=n)))
+    on_card = t3.get_magnetic_field(model, efield)
+    on_cpu = t3.get_magnetic_field(model, efield, device='cpu')
+    assert on_card.field.dtype == np.complex128
+    scale = np.abs(on_cpu.field).max()
+    assert scale > 0
+    assert np.abs(on_card.field - on_cpu.field).max() <= 1e-12 * scale
+
+
+@pytest.mark.cuda
+def test_simulation_gradient_card_equals_cpu(cuda):
+    import emg3d_tpu_torch as t3
+
+    grads = []
+    for device in (None, 'cpu'):
+        survey, model = _survey(16)
+        sim = t3.Simulation(
+            survey, model, gridding='same', tqdm_opts=False,
+            receiver_interpolation='linear', device=device,
+            solver_opts={'plain': True, 'tol': 1e-7, 'verb': 0,
+                         'dtype': torch.complex128})
+        sim.compute(observed=True, add_noise=False)
+        sim.data['observed'] = sim.data.observed * 1.1
+        grads.append((sim.gradient, sim.misfit, sim.device))
+    (g_card, m_card, d_card), (g_cpu, m_cpu, d_cpu) = grads
+    assert (d_card, d_cpu) == ('cuda', 'cpu')
+    assert g_card.shape == (3, 16, 16, 16) and np.abs(g_cpu).max() > 0
+    assert abs(m_card - m_cpu) <= 1e-8 * m_cpu
+    assert np.abs(g_card - g_cpu).max() <= 1e-8 * np.abs(g_cpu).max()

@@ -17,7 +17,7 @@ from numpy.testing import assert_array_equal
 
 import emg3d_tpu_torch as e3t
 from emg3d_tpu import fields, meshes, models
-from emg3d_tpu_torch import convert
+from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch import fields as t_fields
 from emg3d_tpu_torch import models as t_models
 
@@ -40,7 +40,7 @@ def _model(grid):
 
 def test_mesh_and_model_convert():
     grid = _grid()
-    tgrid = convert.from_emg3d_tpu(grid)
+    tgrid = from_emg3d_tpu(grid)
     assert isinstance(tgrid, e3t.TensorMesh)
     for name in ('nodes_x', 'nodes_y', 'nodes_z', 'cell_centers_x',
                  'cell_centers_z', 'cell_volumes'):
@@ -48,7 +48,7 @@ def test_mesh_and_model_convert():
     assert tgrid.shape_cells == grid.shape_cells
 
     model = _model(grid)
-    tmodel = convert.from_emg3d_tpu(model)
+    tmodel = from_emg3d_tpu(model)
     assert isinstance(tmodel, e3t.Model)
     assert tmodel.case == model.case == 'VTI'
     assert_array_equal(tmodel.property_x, model.property_x)
@@ -61,13 +61,13 @@ def test_volume_model_and_source(frequency):
     model = _model(grid)
     src = (10., -20., 5., 30., 15.)
     sfield = fields.get_source_field(grid, src, frequency)
-    tsfield = t_fields.get_source_field(convert.from_emg3d_tpu(grid), src,
+    tsfield = t_fields.get_source_field(from_emg3d_tpu(grid), src,
                                         frequency)
     assert tsfield.field.dtype == sfield.field.dtype
     assert_array_equal(tsfield.field, sfield.field)
 
     vm = models.VolumeModel(model, sfield)
-    tvm = t_models.VolumeModel(convert.from_emg3d_tpu(model), tsfield)
+    tvm = t_models.VolumeModel(from_emg3d_tpu(model), tsfield)
     for name in ('eta_x', 'eta_y', 'eta_z', 'zeta'):
         assert_array_equal(getattr(tvm, name), getattr(vm, name))
 
@@ -78,7 +78,7 @@ def test_field_convert_and_receiver():
     n = grid.n_edges
     field = fields.Field(grid, data=rng.normal(size=n) + 1j * rng.normal(
         size=n), frequency=1.0)
-    tfield = convert.from_emg3d_tpu(field)
+    tfield = from_emg3d_tpu(field)
     assert isinstance(tfield, e3t.Field)
     assert_array_equal(tfield.field, field.field)
     assert_array_equal(tfield.fy, field.fy)
@@ -87,7 +87,7 @@ def test_field_convert_and_receiver():
                        fields.get_receiver(field, rec))
 
     with pytest.raises(TypeError):
-        convert.from_emg3d_tpu(models.VolumeModel(_model(grid), field))
+        from_emg3d_tpu(models.VolumeModel(_model(grid), field))
 
 
 def test_import_leaves_jax_out():

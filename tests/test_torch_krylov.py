@@ -22,7 +22,7 @@ from numpy.testing import assert_allclose
 
 from emg3d_tpu import fields, meshes, models, solver
 from emg3d_tpu.ops import operator
-from emg3d_tpu_torch import convert
+from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch import models as t_models
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.ops import operator as t_operator
@@ -51,8 +51,8 @@ def _problem(shape, seed=5, frequency=0.9):
     sfield = fields.get_source_field(grid, (5., -3., 2., 20., 10.),
                                      frequency)
     vm = models.VolumeModel(model, sfield)
-    tvm = t_models.VolumeModel(convert.from_emg3d_tpu(model),
-                               convert.from_emg3d_tpu(sfield))
+    tvm = t_models.VolumeModel(from_emg3d_tpu(model),
+                               from_emg3d_tpu(sfield))
     return vm, tvm, sfield
 
 
@@ -235,7 +235,7 @@ def wrapper_problem():
 
 
 def _t(obj):
-    return convert.from_emg3d_tpu(obj)
+    return from_emg3d_tpu(obj)
 
 
 @pytest.mark.parametrize('lr_dir', [0, 4])

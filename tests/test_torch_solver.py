@@ -24,7 +24,8 @@ from numpy.testing import assert_allclose
 
 import alternatives
 from emg3d_tpu import fields, meshes, models, solver
-from emg3d_tpu_torch import convert, northstar
+from emg3d_tpu_torch import northstar
+from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch import models as t_models
 from emg3d_tpu_torch import solver as t_solver
 
@@ -56,10 +57,10 @@ def _both(model, sfield, efield=None, **kw):
     jkw, tkw = dict(kw), dict(kw, device='cpu')
     if efield is not None:
         jkw['efield'] = efield.copy()
-        tkw['efield'] = convert.from_emg3d_tpu(efield.copy())
+        tkw['efield'] = from_emg3d_tpu(efield.copy())
     ref = solver.solve(model, sfield, **jkw)
-    out = t_solver.solve(convert.from_emg3d_tpu(model),
-                         convert.from_emg3d_tpu(sfield), **tkw)
+    out = t_solver.solve(from_emg3d_tpu(model),
+                         from_emg3d_tpu(sfield), **tkw)
     return out, ref
 
 
@@ -123,8 +124,8 @@ def test_invalid_options_raise(problem, kw):
     with pytest.raises(ValueError) as ref:
         solver.solve(model, sfield, **kw)
     with pytest.raises(ValueError) as out:
-        t_solver.solve(convert.from_emg3d_tpu(model),
-                       convert.from_emg3d_tpu(sfield), device='cpu', **kw)
+        t_solver.solve(from_emg3d_tpu(model),
+                       from_emg3d_tpu(sfield), device='cpu', **kw)
     assert str(out.value) == str(ref.value)
 
 
@@ -137,8 +138,8 @@ def test_default_solve_triaxial_dense():
     model = models.Model(grid, property_x=1.0, property_y=2.0,
                          property_z=3.0)
     sfield = fields.get_source_field(grid, (0, 0, 0, 0, 0), 1.0)
-    tmodel = convert.from_emg3d_tpu(model)
-    tsfield = convert.from_emg3d_tpu(sfield)
+    tmodel = from_emg3d_tpu(model)
+    tsfield = from_emg3d_tpu(sfield)
     efield, info = t_solver.solve(tmodel, tsfield, tol=1e-8,
                                   return_info=True, device='cpu')
     assert info['exit_message'] == 'CONVERGED'
@@ -159,8 +160,8 @@ def test_cuda_without_card_raises(problem, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     model, sfield = problem
     with pytest.raises(RuntimeError, match='cuda'):
-        t_solver.solve(convert.from_emg3d_tpu(model),
-                       convert.from_emg3d_tpu(sfield), plain=True,
+        t_solver.solve(from_emg3d_tpu(model),
+                       from_emg3d_tpu(sfield), plain=True,
                        device='cuda')
 
 
@@ -177,8 +178,8 @@ def test_no_device_without_card_raises(problem, monkeypatch):
     model, sfield = problem
     for kw in ({}, {'plain': True}):
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            t_solver.solve(convert.from_emg3d_tpu(model),
-                           convert.from_emg3d_tpu(sfield), **kw)
+            t_solver.solve(from_emg3d_tpu(model),
+                           from_emg3d_tpu(sfield), **kw)
 
 
 def _load_script(path, monkeypatch):

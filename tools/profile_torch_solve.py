@@ -1,6 +1,6 @@
 """Where the time of one solve of the PyTorch port goes, on one CUDA card.
 
-    python3 -m tools.profile_torch_solve [triaxial|baseline|marine] [n]
+    python3 -m tools.profile_torch_solve [triaxial|baseline|marine|salt] [n]
 
 Solves one north-star problem through ``emg3d_tpu_torch.solve`` (after a
 warm-up solve at 32 cells a side) under ``torch.profiler`` and prints:
@@ -11,18 +11,73 @@ the wall time, the device time of every kernel and copy summed by name
 - ``baseline``: n^3 fullspace, 1 Ohm m, plain F-cycles;
 - ``marine``: n x n x n/2 layered marine model, sc+lr F-cycles.
 
+``salt`` is the survey path (``northstar.salt_survey(n, 8)`` through
+``emg3d_tpu_torch.Simulation``): the whole forward pass, then misfit and
+gradient on the model whose salt is 0.8 times as resistive, each with its
+wall time, the time inside and outside ``solve`` and the host functions
+that take most of it (``cProfile``, own time); then one forward task
+under ``torch.profiler`` as for the other cases.
+
 The problems and their options are those of ``emg3d_tpu_torch.northstar``.
 Run from the repo root; imports nothing of JAX; needs a card.
 """
 
 import collections
+import cProfile
+import pstats
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from emg3d_tpu_torch import northstar
+
+
+def host_stage(label, nsolves, fn):
+    """Run ``fn`` (a stage of a survey) under ``cProfile``; print its wall
+    time, the time inside and outside ``solve`` and the host functions
+    with the most time of their own."""
+    with northstar.timed_solves() as inside:
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"{label}: wall {wall!r} s under cProfile for {len(inside)} solves "
+          f"(expected {nsolves}), {sum(inside)!r} s inside solve, "
+          f"{wall - sum(inside)!r} s ({100 * (1 - sum(inside) / wall):.1f} %) "
+          f"outside it")
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    for (fname, line, func), (_, ncalls, own, cum, _) in rows:
+        print(f"  {own:9.3f} s own {cum:9.3f} s cumulative {ncalls:7d} calls"
+              f"  {fname.rsplit('/', 1)[-1]}:{line}({func})")
+
+
+def salt_task(n):
+    """The survey stages under ``cProfile``; returns a function that solves
+    one forward task again, and a label."""
+    from emg3d_tpu_torch import Simulation
+
+    survey, model, kw = northstar.salt_survey(n, 8)
+    kw['tqdm_opts'] = False
+    sim = Simulation(survey, model, **kw)
+    host_stage("salt forward pass", 8, lambda: sim.compute(
+        observed=True, rng=np.random.default_rng(20)))
+    sim2 = Simulation(sim.survey.copy(), northstar.salt_model(
+        model.grid, salt_scale=0.8), **kw)
+    host_stage("salt misfit and gradient", 16, lambda: sim2.gradient)
+    sim.clean('computed')
+
+    def task():
+        sim.compute(source='TxEP-1', frequency='f-1')
+        return sim.get_efield_info('TxEP-1', 'f-1')
+
+    return task, f"salt {model.shape}, the forward task of source 1"
 
 
 def main():
@@ -34,20 +89,29 @@ def main():
 
     from emg3d_tpu_torch import solve
 
-    make = getattr(northstar, f"{case}_problem")
-    kw = northstar.SOLVE_OPTIONS[case]
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    solve(*make(32), tol=1e-6, **kw)                  # warm-up
-    model, sfield = make(n)
+    print(f"card: {smi}")
+    if case == "salt":
+        solve(*northstar.triaxial_problem(32), tol=1e-6)    # warm-up
+        task, label = salt_task(n)
+    else:
+        make = getattr(northstar, f"{case}_problem")
+        kw = northstar.SOLVE_OPTIONS[case]
+        solve(*make(32), tol=1e-6, **kw)                  # warm-up
+        model, sfield = make(n)
+        label = f"{case} {model.shape}"
+
+        def task():
+            return solve(model, sfield, tol=1e-6, return_info=True, **kw)[1]
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, info = solve(model, sfield, tol=1e-6, return_info=True, **kw)
+        info = task()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -57,8 +121,7 @@ def main():
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in by_name.values())
-    print(f"card: {smi}")
-    print(f"{case} {model.shape}: wall {wall!r} s under the profiler, "
+    print(f"{label}: wall {wall!r} s under the profiler, "
           f"it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, rel_error "
           f"{info['rel_error']!r}, {info['exit_message']}")
     print(f"device busy {busy!r} ms in {sum(v[0] for v in by_name.values())}"
