@@ -13,10 +13,12 @@ This package imports neither ``jax`` nor ``emg3d_tpu``.  The public API
 mirrors emg3d_tpu (reference emg3d/__init__.py:18-33) for the ported
 slices: ``solve`` with the default MG-preconditioned BiCGSTAB,
 semicoarsening and line relaxation, or stand-alone multigrid
-(``plain=True``); ``Survey`` and ``Simulation`` (forward fields, misfit,
-adjoint-state gradient, ``jvec``/``jtvec``) over the sequential task
-engine; magnetic fields; ``save``/``load``; the ``Fourier`` time-domain
-transform.
+(``plain=True``); ``solve_batch``/``solve_batch_fields``, many
+(source, frequency) tasks as one batched solve; ``Survey`` and
+``Simulation`` (forward fields, misfit, adjoint-state gradient,
+``jvec``/``jtvec``) over the sequential task engine or the batched one
+(``parallel='batch'``); magnetic fields; ``save``/``load``; the
+``Fourier`` time-domain transform.
 """
 
 # ``convert`` is, as in emg3d_tpu, the function of ``io``; the module
@@ -31,6 +33,7 @@ from emg3d_tpu_torch.fields import (
 from emg3d_tpu_torch.io import save, load, convert
 from emg3d_tpu_torch.meshes import TensorMesh, construct_mesh
 from emg3d_tpu_torch.models import Model
+from emg3d_tpu_torch.parallel.batch import solve_batch, solve_batch_fields
 from emg3d_tpu_torch.simulations import Simulation
 from emg3d_tpu_torch.solver import solve, solve_source
 from emg3d_tpu_torch.surveys import Survey
@@ -43,5 +46,6 @@ __all__ = [
     'RxMagneticPoint', 'Field', 'get_source_field', 'get_receiver',
     'get_magnetic_field', 'save', 'load', 'convert', 'TensorMesh',
     'construct_mesh', 'Model', 'Simulation', 'solve', 'solve_source',
+    'solve_batch', 'solve_batch_fields',
     'Survey', 'Fourier', 'Report', 'from_emg3d_tpu', '__version__',
 ]

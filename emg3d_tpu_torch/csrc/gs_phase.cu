@@ -36,6 +36,17 @@
 // run-time arguments (no per-shape build).  The kernel launches on the
 // caller's stream, does not synchronise and allocates nothing; each C
 // entry point returns cudaGetLastError().
+//
+// A task index (the batch engine, emg3d_tpu/parallel/batch.py:99-103,
+// which vmaps this phase over a leading task axis): blockIdx.y is the
+// task.  Fields and sources are (ntask, ...) C-contiguous, so a task's
+// component starts one component size after the last one's.  eta is
+// either stacked (task stride = cells) or shared (task stride 0), and a
+// shared eta may carry one scale per task that multiplies every eta value
+// on load (the counterpart of solver._scaled: task k's eta is scale[k]
+// times the shared one, so B copies of eta never exist).  zeta and the
+// widths are shared.  One task, stride 0 and no scale is the unbatched
+// kernel: the unscaled instantiation does the same arithmetic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,7 +96,7 @@ template <typename R> struct Real<Cx<R>, R> {
   __device__ static Cx<R> make(R s) { return {s, R(0)}; }
 };
 
-template <typename V, typename R>
+template <typename V, typename R, bool SCALED>
 __global__ void __launch_bounds__(256)
 gs_phase_kernel(V* __restrict__ ex, V* __restrict__ ey, V* __restrict__ ez,
                 const V* __restrict__ sx, const V* __restrict__ sy,
@@ -94,9 +105,31 @@ gs_phase_kernel(V* __restrict__ ex, V* __restrict__ ey, V* __restrict__ ez,
                 const R* __restrict__ zeta, const R* __restrict__ hx,
                 const R* __restrict__ hy, const R* __restrict__ hz,
                 int64_t nx, int64_t ny, int64_t nz, int px, int py, int pz,
-                int64_t ncx, int64_t ncy, int64_t ncz) {
+                int64_t ncx, int64_t ncy, int64_t ncz, int64_t eta_tstride,
+                const V* __restrict__ scale) {
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= ncx * ncy * ncz) return;
+  // This block's task: move every per-task pointer to its slice.
+  const int64_t task = blockIdx.y;
+  const int64_t nex = nx * (ny + 1) * (nz + 1);
+  const int64_t ney = (nx + 1) * ny * (nz + 1);
+  const int64_t nez = (nx + 1) * (ny + 1) * nz;
+  ex += task * nex;
+  sx += task * nex;
+  ey += task * ney;
+  sy += task * ney;
+  ez += task * nez;
+  sz += task * nez;
+  eta_x += task * eta_tstride;
+  eta_y += task * eta_tstride;
+  eta_z += task * eta_tstride;
+  V sc;
+  if constexpr (SCALED) sc = scale[task];
+  // An eta value of this task (scaled on load where eta is shared).
+  auto ld = [&](const V* eta, int64_t o) {
+    if constexpr (SCALED) return cx_mul(sc, eta[o]);
+    else return eta[o];
+  };
   const int64_t k = t % ncz;
   const int64_t j = (t / ncz) % ncy;
   const int64_t i = t / (ncz * ncy);
@@ -169,8 +202,8 @@ gs_phase_kernel(V* __restrict__ ex, V* __restrict__ ey, V* __restrict__ ez,
   // Diagonal eta sums / 4 over the 4 cells around each edge.
   auto st4 = [&](const V* eta, int64_t a0, int64_t a1, int64_t b0,
                  int64_t b1, int64_t c0, int64_t c1) {
-    V s = cx_add(cx_add(eta[oc(a0, b0, c0)], eta[oc(a0, b0, c1)]),
-                 cx_add(eta[oc(a1, b1, c0)], eta[oc(a1, b1, c1)]));
+    V s = cx_add(cx_add(ld(eta, oc(a0, b0, c0)), ld(eta, oc(a0, b0, c1))),
+                 cx_add(ld(eta, oc(a1, b1, c0)), ld(eta, oc(a1, b1, c1))));
     return cx_scale(s, R(0.25));
   };
   // eta_x at x-cell xa|xb, summed over y in {iy-1, iy}, z in {iz-1, iz}.
@@ -181,12 +214,12 @@ gs_phase_kernel(V* __restrict__ ex, V* __restrict__ ey, V* __restrict__ ez,
   const V st3 = st4(eta_y, ix - 1, ix, iy, iy, iz - 1, iz);
   // eta_z at z-cell zm|zp, summed over x and y.
   const V st4_ = cx_scale(
-      cx_add(cx_add(eta_z[oc(ix - 1, iy - 1, iz - 1)], eta_z[oc(ix - 1, iy, iz - 1)]),
-             cx_add(eta_z[oc(ix, iy - 1, iz - 1)], eta_z[oc(ix, iy, iz - 1)])),
+      cx_add(cx_add(ld(eta_z, oc(ix - 1, iy - 1, iz - 1)), ld(eta_z, oc(ix - 1, iy, iz - 1))),
+             cx_add(ld(eta_z, oc(ix, iy - 1, iz - 1)), ld(eta_z, oc(ix, iy, iz - 1)))),
       R(0.25));
   const V st5 = cx_scale(
-      cx_add(cx_add(eta_z[oc(ix - 1, iy - 1, iz)], eta_z[oc(ix - 1, iy, iz)]),
-             cx_add(eta_z[oc(ix, iy - 1, iz)], eta_z[oc(ix, iy, iz)])),
+      cx_add(cx_add(ld(eta_z, oc(ix - 1, iy - 1, iz)), ld(eta_z, oc(ix - 1, iy, iz))),
+             cx_add(ld(eta_z, oc(ix, iy - 1, iz)), ld(eta_z, oc(ix, iy, iz)))),
       R(0.25));
 
   using RV = Real<V, R>;
@@ -285,23 +318,31 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
            const void* sz, const void* eta_x, const void* eta_y,
            const void* eta_z, const void* zeta, const void* hx,
            const void* hy, const void* hz, int64_t nx, int64_t ny,
-           int64_t nz, int px, int py, int pz, void* stream) {
+           int64_t nz, int px, int py, int pz, int64_t ntask,
+           int64_t eta_tstride, const void* scale, void* stream) {
   const int64_t ncx = (nx - 1 - px + 1) / 2;  // len(range(px, nx-1, 2))
   const int64_t ncy = (ny - 1 - py + 1) / 2;
   const int64_t ncz = (nz - 1 - pz + 1) / 2;
   const int64_t total = ncx * ncy * ncz;
-  if (total > 0) {
+  if (total > 0 && ntask > 0) {
     const int threads = 256;
     const int64_t blocks = (total + threads - 1) / threads;
-    gs_phase_kernel<V, R><<<dim3(unsigned(blocks)), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<V*>(ex), static_cast<V*>(ey), static_cast<V*>(ez),
-        static_cast<const V*>(sx), static_cast<const V*>(sy),
-        static_cast<const V*>(sz), static_cast<const V*>(eta_x),
-        static_cast<const V*>(eta_y), static_cast<const V*>(eta_z),
-        static_cast<const R*>(zeta), static_cast<const R*>(hx),
-        static_cast<const R*>(hy), static_cast<const R*>(hz), nx, ny, nz,
-        px, py, pz, ncx, ncy, ncz);
+    const dim3 grid(static_cast<unsigned>(blocks),
+                    static_cast<unsigned>(ntask));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GS_PHASE_ARGS                                                        \
+  static_cast<V*>(ex), static_cast<V*>(ey), static_cast<V*>(ez),             \
+      static_cast<const V*>(sx), static_cast<const V*>(sy),                  \
+      static_cast<const V*>(sz), static_cast<const V*>(eta_x),               \
+      static_cast<const V*>(eta_y), static_cast<const V*>(eta_z),            \
+      static_cast<const R*>(zeta), static_cast<const R*>(hx),                \
+      static_cast<const R*>(hy), static_cast<const R*>(hz), nx, ny, nz, px,  \
+      py, pz, ncx, ncy, ncz, eta_tstride, static_cast<const V*>(scale)
+    if (scale != nullptr)
+      gs_phase_kernel<V, R, true><<<grid, threads, 0, st>>>(GS_PHASE_ARGS);
+    else
+      gs_phase_kernel<V, R, false><<<grid, threads, 0, st>>>(GS_PHASE_ARGS);
+#undef GS_PHASE_ARGS
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -314,9 +355,12 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
                       const void* eta_y, const void* eta_z,                  \
                       const void* zeta, const void* hx, const void* hy,      \
                       const void* hz, int64_t nx, int64_t ny, int64_t nz,    \
-                      int px, int py, int pz, void* stream) {                \
+                      int px, int py, int pz, int64_t ntask,                 \
+                      int64_t eta_tstride, const void* scale,                \
+                      void* stream) {                                        \
     return launch<V, R>(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,   \
-                        hx, hy, hz, nx, ny, nz, px, py, pz, stream);         \
+                        hx, hy, hz, nx, ny, nz, px, py, pz, ntask,           \
+                        eta_tstride, scale, stream);                         \
   }
 
 GS_PHASE_ENTRY(gs_phase_c64, Cx<float>, float)

@@ -77,6 +77,14 @@
 // arguments (no per-shape build), offsets 64-bit.  The kernel launches on
 // the caller's stream, does not synchronise and allocates nothing; each C
 // entry point returns cudaGetLastError().
+//
+// A task index (the batch engine, emg3d_tpu/parallel/batch.py:99-103):
+// blockIdx.y is the task, with one task stride per edge role (fields and
+// sources are (ntask, ...)), one for eta (stacked: cells; shared: 0) and
+// one for the scratch (each task has its own).  A shared eta may carry one
+// scale per task that multiplies every eta value on load (solver._scaled).
+// zeta and the widths are shared.  The design per line is unchanged; one
+// task, stride 0 and no scale is the unbatched kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -167,10 +175,12 @@ __device__ __forceinline__ T sel5(int role, T a0, T a1, T a2, T a3, T a4) {
 
 // Frame geometry: cells along the frame axes, and the element strides of
 // the permuted views of the edge arrays of the x, y and z role and of the
-// cell arrays.
+// cell arrays; then the task strides of the edge arrays of each role, of
+// eta and of the scratch.
 struct Geo {
   int64_t nx, ny, nz;
   int64_t sx[3], sy[3], sz[3], sc[3];
+  int64_t tx, ty, tz, teta, tscr;
 };
 
 template <typename V, typename R>
@@ -246,11 +256,24 @@ struct Ldl {
   }
 };
 
-template <typename V, typename R>
+template <typename V, typename R, bool SCALED>
 __global__ void __launch_bounds__(WARP)
 line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
-                  int y_fastest) {
+                  int y_fastest, const V* __restrict__ scale) {
   using RV = Real<V, R>;
+  // This block's task: its slices of the fields, sources, eta and scratch.
+  const int64_t task = blockIdx.y;
+  V* const ex = ln.ex + task * ln.g.tx;
+  V* const ey = ln.ey + task * ln.g.ty;
+  V* const ez = ln.ez + task * ln.g.tz;
+  const V* const srcx = ln.srcx + task * ln.g.tx;
+  const V* const srcy = ln.srcy + task * ln.g.ty;
+  const V* const srcz = ln.srcz + task * ln.g.tz;
+  const V* const etax = ln.eta_x + task * ln.g.teta;
+  const V* const etay = ln.eta_y + task * ln.g.teta;
+  const V* const etaz = ln.eta_z + task * ln.g.teta;
+  V sc;
+  if constexpr (SCALED) sc = scale[task];
   const int64_t nlines = ncy * ncz;
   const int q = threadIdx.x % TEAM;
   int64_t t = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / TEAM;
@@ -284,7 +307,7 @@ line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
   // The 4 eta cells of the lane's diagonal entry (reference
   // core.py:390): role 0 takes the 4 cells at x = a; roles 1-4 take two
   // transverse cells at x = b (pair 0) and at x = a (pair 1).
-  const V* const eta_p = role0 ? ln.eta_x : role <= 2 ? ln.eta_y : ln.eta_z;
+  const V* const eta_p = role0 ? etax : role <= 2 ? etay : etaz;
   const int64_t eo0 = sel5(role, tmm, tmm, tpm, tpm, tpp);
   const int64_t eo1 = sel5(role, tpm, tmp, tpp, tmm, tmp);
   const int64_t eo2 = role0 ? tmp : eo0;
@@ -294,39 +317,39 @@ line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
   // couplings of its row, reference core.py:723-766, in the order of the
   // sums there).  Terms 0 and 1 are ex edges; 2, 3 and 4, 5 are two pairs
   // of the other components.  Roles 1-4 read term 0 or term 1 at x = b.
-  const V* const ps = sel5<const V*>(role, ln.srcx + ln.ox(0, iy, iz),
-                           ln.srcy + ln.oy(0, ym, iz),
-                           ln.srcy + ln.oy(0, yp, iz),
-                           ln.srcz + ln.oz(0, iy, zm),
-                           ln.srcz + ln.oz(0, iy, zp));
+  const V* const ps = sel5<const V*>(role, srcx + ln.ox(0, iy, iz),
+                           srcy + ln.oy(0, ym, iz),
+                           srcy + ln.oy(0, yp, iz),
+                           srcz + ln.oz(0, iy, zm),
+                           srcz + ln.oz(0, iy, zp));
   const int64_t ssrc = role0 ? sx0 : role <= 2 ? sy0 : sz0;
-  const V* const p0 = ln.ex + sel5(role, ln.ox(0, iy + 1, iz),
-                                   ln.ox(0, iy - 1, iz), ln.ox(0, iy + 1, iz),
-                                   ln.ox(0, iy, iz - 1), ln.ox(0, iy, iz + 1));
-  const V* const p1 = role0 ? ln.ex + ln.ox(0, iy - 1, iz) : p0;
+  const V* const p0 = ex + sel5(role, ln.ox(0, iy + 1, iz),
+                                ln.ox(0, iy - 1, iz), ln.ox(0, iy + 1, iz),
+                                ln.ox(0, iy, iz - 1), ln.ox(0, iy, iz + 1));
+  const V* const p1 = role0 ? ex + ln.ox(0, iy - 1, iz) : p0;
   const bool b0 = role == 1 || role == 3, b1 = role == 2 || role == 4;
-  const V* const p2 = sel5<const V*>(role, ln.ex + ln.ox(0, iy, iz + 1),
-                           ln.ez + ln.oz(0, iy - 1, zp),
-                           ln.ez + ln.oz(0, iy + 1, zm),
-                           ln.ey + ln.oy(0, yp, iz - 1),
-                           ln.ey + ln.oy(0, ym, iz + 1));
-  const V* const p3 = sel5<const V*>(role, ln.ex + ln.ox(0, iy, iz - 1),
-                           ln.ez + ln.oz(0, iy - 1, zm),
-                           ln.ez + ln.oz(0, iy + 1, zp),
-                           ln.ey + ln.oy(0, ym, iz - 1),
-                           ln.ey + ln.oy(0, yp, iz + 1));
+  const V* const p2 = sel5<const V*>(role, ex + ln.ox(0, iy, iz + 1),
+                           ez + ln.oz(0, iy - 1, zp),
+                           ez + ln.oz(0, iy + 1, zm),
+                           ey + ln.oy(0, yp, iz - 1),
+                           ey + ln.oy(0, ym, iz + 1));
+  const V* const p3 = sel5<const V*>(role, ex + ln.ox(0, iy, iz - 1),
+                           ez + ln.oz(0, iy - 1, zm),
+                           ez + ln.oz(0, iy + 1, zp),
+                           ey + ln.oy(0, ym, iz - 1),
+                           ey + ln.oy(0, yp, iz + 1));
   const int64_t s23 = role0 ? sx0 : role <= 2 ? sz0 : sy0;
   // Role 0 has no terms 4 and 5: it reads term 0 again and drops it.
   const V* const p4 = sel5<const V*>(role, p0,
-                           ln.ey + ln.oy(0, ym, iz + 1),
-                           ln.ey + ln.oy(0, yp, iz + 1),
-                           ln.ez + ln.oz(0, iy + 1, zm),
-                           ln.ez + ln.oz(0, iy + 1, zp));
+                           ey + ln.oy(0, ym, iz + 1),
+                           ey + ln.oy(0, yp, iz + 1),
+                           ez + ln.oz(0, iy + 1, zm),
+                           ez + ln.oz(0, iy + 1, zp));
   const V* const p5 = sel5<const V*>(role, p0,
-                           ln.ey + ln.oy(0, ym, iz - 1),
-                           ln.ey + ln.oy(0, yp, iz - 1),
-                           ln.ez + ln.oz(0, iy - 1, zm),
-                           ln.ez + ln.oz(0, iy - 1, zp));
+                           ey + ln.oy(0, ym, iz - 1),
+                           ey + ln.oy(0, yp, iz - 1),
+                           ez + ln.oz(0, iy - 1, zm),
+                           ez + ln.oz(0, iy - 1, zp));
   const int64_t s45 = role0 ? sx0 : role <= 2 ? sy0 : sz0;
   // The constant factor of each of the lane's 6 rhs coefficients.
   const R w0 = sel5(role, ihyp, ihym, ihyp, ihzm, ihzp);
@@ -353,6 +376,10 @@ line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
     w.eta[1] = eta_p[xr * sc0 + eo1];
     w.eta[2] = eta_p[a * sc0 + eo2];
     w.eta[3] = eta_p[a * sc0 + eo3];
+    if constexpr (SCALED) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w.eta[i] = cx_mul(sc, w.eta[i]);
+    }
     w.zb[0] = ln.zeta[b * sc0 + tmm];
     w.zb[1] = ln.zeta[b * sc0 + tmp];
     w.zb[2] = ln.zeta[b * sc0 + tpm];
@@ -363,7 +390,7 @@ line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
 
   // Scratch value (row i, column c) of group a of this line: 5 rows of
   // [W_a[i, 0..4], z_a[i]].
-  V* const scr = ln.scratch;
+  V* const scr = ln.scratch + task * ln.g.tscr;
   auto sidx = [&](int64_t a, int i, int c) {
     return (a * nlines + t) * 30 + (i * 6 + c);
   };
@@ -510,9 +537,9 @@ line_phase_kernel(Line<V, R> ln, int py, int pz, int64_t ncy, int64_t ncz,
 
   // Backward substitution, u_a = z_a - W_a u_{a+1}: lane i < 5 computes
   // and writes unknown i (ex at cell a; the others at node a + 1).
-  V* const out = sel5<V*>(role, ln.ex + ln.ox(0, iy, iz),
-                      ln.ey + ln.oy(1, iy - 1, iz), ln.ey + ln.oy(1, iy, iz),
-                      ln.ez + ln.oz(1, iy, iz - 1), ln.ez + ln.oz(1, iy, iz));
+  V* const out = sel5<V*>(role, ex + ln.ox(0, iy, iz),
+                          ey + ln.oy(1, iy - 1, iz), ey + ln.oy(1, iy, iz),
+                          ez + ln.oz(1, iy, iz - 1), ez + ln.oz(1, iy, iz));
   const int64_t sout = role0 ? sx0 : role <= 2 ? sy0 : sz0;
   const bool writes = active && q < 5;
   if (writes && role0) out[(nx - 1) * sout] = u[0];
@@ -543,7 +570,7 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
            const void* sz, const void* eta_x, const void* eta_y,
            const void* eta_z, const void* zeta, const void* hx,
            const void* hy, const void* hz, void* scratch, const int64_t* geo,
-           int py, int pz, void* stream) {
+           int py, int pz, int64_t ntask, const void* scale, void* stream) {
   Line<V, R> ln;
   ln.ex = static_cast<V*>(ex);
   ln.ey = static_cast<V*>(ey);
@@ -568,16 +595,28 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
     ln.g.sz[i] = geo[9 + i];
     ln.g.sc[i] = geo[12 + i];
   }
+  ln.g.tx = geo[15];
+  ln.g.ty = geo[16];
+  ln.g.tz = geo[17];
+  ln.g.teta = geo[18];
+  ln.g.tscr = geo[19];
   const int64_t ncy = (ln.g.ny - py) / 2, ncz = (ln.g.nz - pz) / 2;
   const int64_t nlines = ncy * ncz;
-  if (nlines > 0) {
+  if (nlines > 0 && ntask > 0) {
     // Consecutive teams along the transverse axis of smaller stride; one
     // warp (4 lines) per block spreads the lines of a color over the SMs.
     const int y_fastest = ln.g.sc[1] < ln.g.sc[2];
     const int64_t blocks = (nlines * TEAM + WARP - 1) / WARP;
-    line_phase_kernel<V, R><<<dim3(unsigned(blocks)), WARP, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        ln, py, pz, ncy, ncz, y_fastest);
+    const dim3 grid(static_cast<unsigned>(blocks),
+                    static_cast<unsigned>(ntask));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const V* sc = static_cast<const V*>(scale);
+    if (sc != nullptr)
+      line_phase_kernel<V, R, true><<<grid, WARP, 0, st>>>(
+          ln, py, pz, ncy, ncz, y_fastest, sc);
+    else
+      line_phase_kernel<V, R, false><<<grid, WARP, 0, st>>>(
+          ln, py, pz, ncy, ncz, y_fastest, sc);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -590,9 +629,11 @@ int launch(void* ex, void* ey, void* ez, const void* sx, const void* sy,
                       const void* eta_y, const void* eta_z,                  \
                       const void* zeta, const void* hx, const void* hy,      \
                       const void* hz, void* scratch, const int64_t* geo,     \
-                      int py, int pz, void* stream) {                        \
+                      int py, int pz, int64_t ntask, const void* scale,      \
+                      void* stream) {                                        \
     return launch<V, R>(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,   \
-                        hx, hy, hz, scratch, geo, py, pz, stream);           \
+                        hx, hy, hz, scratch, geo, py, pz, ntask, scale,      \
+                        stream);                                             \
   }
 
 LINE_PHASE_ENTRY(line_phase_c64, Cx<float>, float)

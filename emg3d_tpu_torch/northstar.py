@@ -162,22 +162,28 @@ def salt_box(grid):
 @contextlib.contextmanager
 def timed_solves():
     """Within the block, every ``solver.solve`` (so every task of a
-    ``Simulation``) appends its wall seconds to the list that is yielded:
-    what of a survey's time is spent inside the solver (hierarchies and
-    host copies of the solve included) and what outside it (source
-    fields, responses, gradient assembly)."""
+    ``Simulation``) and every batched solve
+    (``parallel.batch.solve_batch_fields``, one per grid of a
+    ``Simulation(parallel='batch')`` stage) appends its wall seconds to
+    the list that is yielded: what of a survey's time is spent inside the
+    solver (hierarchies and host copies of the solve included) and what
+    outside it (source fields, responses, gradient assembly)."""
+    from emg3d_tpu_torch.parallel import batch
+
     seconds = []
-    inner = solver.solve
 
-    def solve(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return inner(*args, **kwargs)
-        finally:
-            seconds.append(time.perf_counter() - t0)
+    def timed(inner):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+        return call
 
-    solver.solve = solve
+    inner = solver.solve, batch.solve_batch_fields
+    solver.solve, batch.solve_batch_fields = (timed(f) for f in inner)
     try:
         yield seconds
     finally:
-        solver.solve = inner
+        solver.solve, batch.solve_batch_fields = inner

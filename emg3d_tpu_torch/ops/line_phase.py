@@ -13,16 +13,19 @@ The launch path is split in two, because a smoothing call launches
 nu x 4 phases on the same tensors, and on the coarse levels the host,
 not the kernel, bounds back-to-back launches:
 
-- :class:`LinePlan` is built once from the 13 tensors and the axis.  It
-  runs every check, looks up the entry point, the pointers and the
+- :class:`LinePlan` is built once from the 13 tensors, the axis and the
+  optional per-task eta scale of the batch engine.  It runs every check
+  (``_operands.check``), looks up the entry point, the pointers and the
   frame geometry (:func:`line_geometry`), and allocates the scratch
-  once, sized for the parity with most lines.
+  once, sized for the parity with most lines, one such per task.
 - :meth:`LinePlan.launch` does only the stream lookup, the ``ctypes``
   call, the error check and the count.  A plan lives for one smoothing call, in which the
   fields are updated in place; nothing is cached across calls.
 
 :func:`gauss_seidel_line_phase_cuda` is plan and launch in one call.
-Two plain-integer counters:
+Fields may carry a leading task axis: one launch relaxes one color of
+every task (see ``_operands`` for the layouts).  Two plain-integer
+counters:
 
 - ``LAUNCHES``: kernel launches (one per :meth:`LinePlan.launch` whose
   phase has lines);
@@ -37,10 +40,11 @@ transpose is copied.
 """
 
 import ctypes
+import math
 
 import torch
 
-from emg3d_tpu_torch.ops import _build
+from emg3d_tpu_torch.ops import _build, _operands
 
 __all__ = ["gauss_seidel_line_phase_cuda", "LinePlan", "line_geometry",
            "LAUNCHES", "PLAIN_CALLS_ON_CUDA", "reset_counts", "FRAMES",
@@ -59,14 +63,6 @@ SCRATCH_VALUES = 30
 # fields, sources, eta and widths) plays the frame's i-th role.
 FRAMES = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 1, 0)}
 
-# Entry point per field dtype, and the real dtype of zeta and the widths.
-_ENTRY = {
-    torch.complex64: ("line_phase_c64", torch.float32),
-    torch.complex128: ("line_phase_c128", torch.float64),
-    torch.float32: ("line_phase_f32", torch.float32),
-    torch.float64: ("line_phase_f64", torch.float64),
-}
-
 _FUNCS = {}
 
 
@@ -81,37 +77,10 @@ def _func(entry):
     if entry not in _FUNCS:
         fn = getattr(_build.load("line_phase"), entry)
         fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int64] + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _FUNCS[entry] = fn
     return _FUNCS[entry]
-
-
-def _check(name, t, device, dtype, shape):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"line_phase: {name} must be a torch.Tensor.")
-    if t.device != device:
-        raise ValueError(
-            f"line_phase: {name} is on {t.device}, expected {device}.")
-    if t.dtype != dtype:
-        raise TypeError(
-            f"line_phase: {name} has dtype {t.dtype}, expected {dtype}.")
-    if tuple(t.shape) != shape:
-        raise ValueError(
-            f"line_phase: {name} has shape {tuple(t.shape)}, expected "
-            f"{shape}.")
-    if not t.is_contiguous():
-        raise ValueError(f"line_phase: {name} must be C-contiguous.")
-
-
-def _ptr(t):
-    return (torch.view_as_real(t) if t.is_complex() else t).data_ptr()
-
-
-def _cells_parity_error(cells, parity):
-    return ValueError(
-        f"line_phase: need >= 2 cells per axis and parities in "
-        f"{{0, 1}}; got cells {cells}, parity {parity}.")
 
 
 def line_geometry(cells, strides, axis):
@@ -141,82 +110,68 @@ def line_geometry(cells, strides, axis):
 class LinePlan:
     """Everything one smoothing call needs to launch its line phases.
 
-    Built from the 13 tensors of a phase and the line axis; see
-    :func:`gauss_seidel_line_phase_cuda` for what they must be.  Raises
-    on anything the kernel does not take and on a failed build.
+    Built from the 13 tensors of a phase, the line axis and an optional
+    per-task eta ``scale``; see :func:`gauss_seidel_line_phase_cuda` for
+    what they must be.  Raises on anything the kernel does not take and
+    on a failed build.
     """
 
     def __init__(self, ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-                 hx, hy, hz, axis):
-        device = ex.device
-        if device.type != "cuda":
-            raise ValueError(
-                f"line_phase: tensors must be on a CUDA device, got "
-                f"{device}.")
-        if ex.dtype not in _ENTRY:
-            raise TypeError(
-                f"line_phase: unsupported field dtype {ex.dtype}; expected "
-                f"one of {list(_ENTRY)}.")
+                 hx, hy, hz, axis, scale=None):
+        tensors = (ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                   hx, hy, hz)
+        entry, cells, self._ntask, eta_tstride = _operands.check(
+            "line_phase", *tensors, scale=scale)
         if axis not in FRAMES:
             raise ValueError(
                 f"line_phase: axis must be 0, 1, or 2; got {axis}.")
-        entry, rdt = _ENTRY[ex.dtype]
-        for name, t in (("hx", hx), ("hy", hy), ("hz", hz)):
-            if not isinstance(t, torch.Tensor) or t.dim() != 1:
-                raise ValueError(f"line_phase: {name} must be a 1-D tensor.")
-        nx, ny, nz = cells = (hx.numel(), hy.numel(), hz.numel())
-        if min(cells) < 2:
-            raise _cells_parity_error(cells, None)
-        shx, shy, shz = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
-                         (nx + 1, ny + 1, nz))
-        for name, t, shape, dt in (
-                ("ex", ex, shx, ex.dtype), ("ey", ey, shy, ex.dtype),
-                ("ez", ez, shz, ex.dtype), ("sx", sx, shx, ex.dtype),
-                ("sy", sy, shy, ex.dtype), ("sz", sz, shz, ex.dtype),
-                ("eta_x", eta_x, cells, ex.dtype),
-                ("eta_y", eta_y, cells, ex.dtype),
-                ("eta_z", eta_z, cells, ex.dtype),
-                ("zeta", zeta, cells, rdt),
-                ("hx", hx, (nx,), rdt), ("hy", hy, (ny,), rdt),
-                ("hz", hz, (nz,), rdt)):
-            _check(name, t, device, dt, shape)
 
         frame, strides, self._lines = line_geometry(
-            cells, (ex.stride(), ey.stride(), ez.stride(), zeta.stride()),
-            axis)
-        self._geo = (ctypes.c_int64 * 15)(*frame, *strides)
-        self._scratch = torch.empty(
-            max(frame[0] - 1, 1) * SCRATCH_VALUES
-            * max(self._lines.values()), dtype=ex.dtype, device=device)
+            cells, tuple(t.stride()[-3:] for t in (ex, ey, ez, zeta)), axis)
         tp = FRAMES[axis]
+        # Task strides: a task's edge array of each frame role, its eta
+        # (0 if shared) and its scratch.
+        per_task = (max(frame[0] - 1, 1) * SCRATCH_VALUES
+                    * max(self._lines.values()))
+        tstrides = (*(math.prod(tensors[r].shape[-3:]) for r in tp),
+                    eta_tstride, per_task)
+        self._geo = (ctypes.c_int64 * 20)(*frame, *strides, *tstrides)
+        self._scratch = torch.empty(self._ntask * per_task, dtype=ex.dtype,
+                                    device=ex.device)
         e, s = (ex, ey, ez), (sx, sy, sz)
         eta, h = (eta_x, eta_y, eta_z), (hx, hy, hz)
-        # The tensors are referenced for as long as their pointers are.
+        # The tensors (and the scale) are referenced for as long as their
+        # pointers are.
         self._tensors = (*(e[r] for r in tp), *(s[r] for r in tp),
                          *(eta[r] for r in tp), zeta, *(h[r] for r in tp),
                          self._scratch)
-        self._args = (*(_ptr(t) for t in self._tensors),
+        self._scale = scale
+        self._args = (*(_operands.ptr(t) for t in self._tensors),
                       ctypes.addressof(self._geo))
+        self._tail = (self._ntask,
+                      None if scale is None else _operands.ptr(scale))
         self._fn = _func(entry)
-        self._device = device
-        self._what = f"cells {cells}, axis {axis}, {ex.dtype}"
-        self._cells = cells
+        self._device = ex.device
+        self._what = (f"cells {cells}, axis {axis}, {self._ntask} task(s), "
+                      f"{ex.dtype}")
 
     def launch(self, p1, p2):
-        """Relax the lines of transverse parity (p1, p2), in place, on
-        the device's current stream."""
+        """Relax the lines of transverse parity (p1, p2) of every task, in
+        place, on the device's current stream."""
         global LAUNCHES
         nlines = self._lines.get((p1, p2))
         if nlines is None:
-            raise _cells_parity_error(self._cells, (p1, p2))
+            raise ValueError(
+                f"line_phase: parities must be in {{0, 1}}; got "
+                f"{(p1, p2)}.")
         if nlines == 0:
             return                     # Empty phase: no launch of 0 blocks.
         stream = torch.cuda.current_stream(self._device).cuda_stream
         if torch.cuda.current_device() == self._device.index:
-            err = self._fn(*self._args, p1, p2, stream)
+            err = self._fn(*self._args, p1, p2, *self._tail, stream)
         else:
             with torch.cuda.device(self._device):
-                err = self._fn(*self._args, p1, p2, stream)
+                err = self._fn(*self._args, p1, p2, *self._tail, stream)
         if err != 0:
             raise RuntimeError(
                 f"line_phase: kernel launch failed with cudaError {err} "
@@ -225,7 +180,8 @@ class LinePlan:
 
 
 def gauss_seidel_line_phase_cuda(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
-                                 eta_z, zeta, hx, hy, hz, p1, p2, axis):
+                                 eta_z, zeta, hx, hy, hz, p1, p2, axis,
+                                 scale=None):
     """Relax the lines along ``axis`` of transverse parity (p1, p2).
 
     Same arguments and result as ``smoothers._line_relax_phase_torch``:
@@ -237,5 +193,5 @@ def gauss_seidel_line_phase_cuda(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
     One plan (:class:`LinePlan`) and one launch.
     """
     LinePlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta, hx, hy, hz,
-             axis).launch(p1, p2)
+             axis, scale).launch(p1, p2)
     return ex, ey, ez

@@ -10,6 +10,12 @@ Boundary handling matches the reference exactly: rows belonging to
 tangential boundary edges get their curl part zeroed (PEC assumption,
 core.py:193-198) while the sigma term is kept; edges on the far boundary
 nodes (iy=ny / iz=nz planes etc.) are never touched.
+
+Every function indexes the three grid axes from the end, so fields may
+carry a leading task axis ``(B, ...)`` (the batch engine,
+:mod:`emg3d_tpu_torch.parallel.batch`); eta is then either shared
+``(nx, ny, nz)`` or stacked ``(B, nx, ny, nz)``, zeta and the widths are
+shared.
 """
 
 import torch
@@ -61,23 +67,23 @@ def amat_x(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     ihz = (1.0 / hz)[None, None, :]
 
     # --- First curl: V = curl E on the faces (Mulder06 Eq. 7). ------------
-    v1 = ((ez[:, 1:, :] - ez[:, :-1, :]) * ihy
-          - (ey[:, :, 1:] - ey[:, :, :-1]) * ihz)
-    v2 = ((ex[:, :, 1:] - ex[:, :, :-1]) * ihz
-          - (ez[1:, :, :] - ez[:-1, :, :]) * ihx)
-    v3 = ((ey[1:, :, :] - ey[:-1, :, :]) * ihx
-          - (ex[:, 1:, :] - ex[:, :-1, :]) * ihy)
+    v1 = ((ez[..., 1:, :] - ez[..., :-1, :]) * ihy
+          - (ey[..., 1:] - ey[..., :-1]) * ihz)
+    v2 = ((ex[..., 1:] - ex[..., :-1]) * ihz
+          - (ez[..., 1:, :, :] - ez[..., :-1, :, :]) * ihx)
+    v3 = ((ey[..., 1:, :, :] - ey[..., :-1, :, :]) * ihx
+          - (ex[..., 1:, :] - ex[..., :-1, :]) * ihy)
 
     # --- Scale with dual-grid averaged zeta (factor 0.5 applied at the
     # end, like the reference).  Clamped averages at the boundaries. -------
-    u1 = v1 * _pair_clamped(zeta, 0)
-    u2 = v2 * _pair_clamped(zeta, 1)
-    u3 = v3 * _pair_clamped(zeta, 2)
+    u1 = v1 * _pair_clamped(zeta, -3)
+    u2 = v2 * _pair_clamped(zeta, -2)
+    u3 = v3 * _pair_clamped(zeta, -1)
 
     # --- Second curl, on the cell-indexed edge block [0:nx, 0:ny, 0:nz]. --
-    u1c = u1[:nx, :, :]
-    u2c = u2[:, :ny, :]
-    u3c = u3[:, :, :nz]
+    u1c = u1[..., :nx, :, :]
+    u2c = u2[..., :ny, :]
+    u3c = u3[..., :nz]
 
     u3_ihy = u3c * ihy
     u2_ihz = u2c * ihz
@@ -86,36 +92,36 @@ def amat_x(ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     u2_ihx = u2c * ihx
     u1_ihy = u1c * ihy
 
-    rrx = (u3_ihy - _shift_down_clamped(u3_ihy, 1)
-           - u2_ihz + _shift_down_clamped(u2_ihz, 2))
-    rry = (u1_ihz - _shift_down_clamped(u1_ihz, 2)
-           - u3_ihx + _shift_down_clamped(u3_ihx, 0))
-    rrz = (u2_ihx - _shift_down_clamped(u2_ihx, 0)
-           - u1_ihy + _shift_down_clamped(u1_ihy, 1))
+    rrx = (u3_ihy - _shift_down_clamped(u3_ihy, -2)
+           - u2_ihz + _shift_down_clamped(u2_ihz, -1))
+    rry = (u1_ihz - _shift_down_clamped(u1_ihz, -1)
+           - u3_ihx + _shift_down_clamped(u3_ihx, -3))
+    rrz = (u2_ihx - _shift_down_clamped(u2_ihx, -3)
+           - u1_ihy + _shift_down_clamped(u1_ihy, -2))
 
     # Zero the curl part on tangential boundary edges (PEC rows,
     # reference core.py:193-198); the sigma term below is kept.  The
     # rr* tensors are fresh, so zeroing them in place is safe.
-    rrx[:, 0, :] = 0
-    rrx[:, :, 0] = 0
-    rry[0, :, :] = 0
-    rry[:, :, 0] = 0
-    rrz[0, :, :] = 0
-    rrz[:, 0, :] = 0
+    rrx[..., 0, :] = 0
+    rrx[..., 0] = 0
+    rry[..., 0, :, :] = 0
+    rry[..., 0] = 0
+    rrz[..., 0, :, :] = 0
+    rrz[..., 0, :] = 0
 
     # --- Sigma term: 4-cell averages of eta around each edge. -------------
-    stx = _sum_pairs_clamped(_sum_pairs_clamped(eta_x, 1), 2)
-    sty = _sum_pairs_clamped(_sum_pairs_clamped(eta_y, 0), 2)
-    stz = _sum_pairs_clamped(_sum_pairs_clamped(eta_z, 0), 1)
+    stx = _sum_pairs_clamped(_sum_pairs_clamped(eta_x, -2), -1)
+    sty = _sum_pairs_clamped(_sum_pairs_clamped(eta_y, -3), -1)
+    stz = _sum_pairs_clamped(_sum_pairs_clamped(eta_z, -3), -2)
 
     # Far-boundary edges (iy=ny, iz=nz planes etc.) stay zero (zero
     # operator rows), exactly like the reference's loop bounds.
     ax = torch.zeros_like(ex)
     ay = torch.zeros_like(ey)
     az = torch.zeros_like(ez)
-    ax[:, :ny, :nz] = 0.5 * rrx - 0.25 * stx * ex[:, :ny, :nz]
-    ay[:nx, :, :nz] = 0.5 * rry - 0.25 * sty * ey[:nx, :, :nz]
-    az[:nx, :ny, :] = 0.5 * rrz - 0.25 * stz * ez[:nx, :ny, :]
+    ax[..., :ny, :nz] = 0.5 * rrx - 0.25 * stx * ex[..., :ny, :nz]
+    ay[..., :nx, :, :nz] = 0.5 * rry - 0.25 * sty * ey[..., :nx, :, :nz]
+    az[..., :nx, :ny, :] = 0.5 * rrz - 0.25 * stz * ez[..., :nx, :ny, :]
 
     return ax, ay, az
 
@@ -126,12 +132,17 @@ def residual(sx, sy, sz, ex, ey, ez, eta_x, eta_y, eta_z, zeta, hx, hy, hz):
     return sx - ax, sy - ay, sz - az
 
 
-def residual_norm(rx, ry, rz):
-    """l2-norm over all three residual components (a 0-d tensor)."""
+def residual_norm(rx, ry, rz, per_task=False):
+    """l2-norm over all three residual components (a 0-d tensor).
+
+    ``per_task=True``: one norm per task of fields with a leading task
+    axis, over the three grid axes (a ``(B,)`` tensor).
+    """
+    dims = (-3, -2, -1) if per_task else None
     return torch.sqrt(
-        torch.sum(torch.abs(rx) ** 2)
-        + torch.sum(torch.abs(ry) ** 2)
-        + torch.sum(torch.abs(rz) ** 2))
+        torch.sum(torch.abs(rx) ** 2, dim=dims)
+        + torch.sum(torch.abs(ry) ** 2, dim=dims)
+        + torch.sum(torch.abs(rz) ** 2, dim=dims))
 
 
 def edge_curl_factor(ex, ey, ez, hx, hy, hz, zeta):

@@ -26,6 +26,13 @@ tensors run :func:`_line_relax_phase_torch`, CUDA tensors the
 one validated plan.
 
 Phases update the field tensors IN PLACE.
+
+Every smoother takes fields with a leading task axis too (the batch
+engine, :mod:`emg3d_tpu_torch.parallel.batch`): eta is then shared, with
+an optional per-task ``scale`` (task k's eta is ``scale[k] * eta``), or
+stacked ``(B, nx, ny, nz)``; zeta and the widths are shared.  The kernels
+relax one color of every task per launch; the plain versions run task by
+task (:func:`_per_task`), independently of the kernels.
 """
 
 import itertools
@@ -137,21 +144,31 @@ def _m_coefficients(z, kxa, kxb, kym, kyp, kzm, kzp):
 # -------------------------------------------------------------------------
 
 def gauss_seidel(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-                 hx, hy, hz, nu):
+                 hx, hy, hz, nu, scale=None):
     """8-color node smoother: ``nu`` sweeps with alternating phase order.
 
-    Updates ``ex``, ``ey``, ``ez`` in place and returns them.
+    Updates ``ex``, ``ey``, ``ez`` in place and returns them.  CUDA
+    tensors are validated once: one ``gs_phase.GsPlan`` launches all
+    nu x 8 phases.
     """
+    shape = (hx.numel(), hy.numel(), hz.numel())
+    if ex.device.type != "cpu":
+        plan = gs_phase.GsPlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
+                               zeta, hx, hy, hz, scale)
+        for sweep in range(nu):
+            for c in phase_colors(shape, sweep % 2 == 1):
+                plan.launch(*c)
+        return ex, ey, ez
     fields = (ex, ey, ez)
     for sweep in range(nu):
         fields = gauss_seidel_sweep(
             *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, sweep % 2 == 1)
+            hx, hy, hz, sweep % 2 == 1, scale)
     return fields
 
 
 def gauss_seidel_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-                       hx, hy, hz, reverse):
+                       hx, hy, hz, reverse, scale=None):
     """One 8-color sweep: per node, solve its 6-edge 6x6 subsystem.
 
     All interior nodes of one (x, y, z)-parity class are relaxed at once
@@ -165,7 +182,7 @@ def gauss_seidel_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     for c in phase_colors(shape, reverse):
         fields = gauss_seidel_phase(
             *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, *c)
+            hx, hy, hz, *c, scale)
     return fields
 
 
@@ -183,7 +200,7 @@ def phase_colors(shape_cells, reverse):
 
 
 def gauss_seidel_phase(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-                       hx, hy, hz, px, py, pz):
+                       hx, hy, hz, px, py, pz, scale=None):
     """Relax the interior nodes of one (x, y, z)-parity class, in place.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch the
@@ -193,10 +210,29 @@ def gauss_seidel_phase(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     if ex.device.type == "cpu":
         return _gauss_seidel_phase_torch(
             ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, px, py, pz)
+            hx, hy, hz, px, py, pz, scale)
     return gs_phase.gauss_seidel_phase_cuda(
         ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-        hx, hy, hz, px, py, pz)
+        hx, hy, hz, px, py, pz, scale)
+
+
+def _per_task(phase, ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+              hx, hy, hz, args, scale):
+    """Run the plain ``phase`` task by task on fields with a leading
+    task axis: task k with eta ``scale[k] * eta`` (shared), ``eta[k]``
+    (stacked) or ``eta`` (shared, no scale).  The phase writes into the
+    task's views, so the fields are updated in place."""
+    eta = (eta_x, eta_y, eta_z)
+    for k in range(ex.shape[0]):
+        if eta_x.dim() == 4:
+            eta_k = tuple(c[k] for c in eta)
+        elif scale is not None:
+            eta_k = tuple(scale[k] * c for c in eta)
+        else:
+            eta_k = eta
+        phase(ex[k], ey[k], ez[k], sx[k], sy[k], sz[k], *eta_k, zeta,
+              hx, hy, hz, *args)
+    return ex, ey, ez
 
 
 def _csl(o, n, p):
@@ -331,15 +367,20 @@ def _phase_solve(gf, st, m, ih):
 
 
 def _gauss_seidel_phase_torch(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
-                              zeta, hx, hy, hz, px, py, pz):
+                              zeta, hx, hy, hz, px, py, pz, scale=None):
     """Plain PyTorch phase: assemble and solve the 6x6 node systems
     (reference core.py:392-492) for the stride-2 node subgrid with
     (ix-1, iy-1, iz-1) ≡ (px, py, pz) mod 2, on strided views of the
     inputs.  Writes the six solved edges of every phase node into
-    ``ex``, ``ey``, ``ez`` IN PLACE and returns them.
+    ``ex``, ``ey``, ``ez`` IN PLACE and returns them.  Fields with a
+    leading task axis run task by task (:func:`_per_task`).
 
     The reference the kernel is held against; it runs on any device.
     """
+    if ex.dim() == 4:
+        return _per_task(_gauss_seidel_phase_torch, ex, ey, ez, sx, sy, sz,
+                         eta_x, eta_y, eta_z, zeta, hx, hy, hz,
+                         (px, py, pz), scale)
     if ex.is_cuda:
         gs_phase.PLAIN_CALLS_ON_CUDA += 1
     nx, ny, nz = hx.numel(), hy.numel(), hz.numel()
@@ -420,7 +461,7 @@ def _gauss_seidel_phase_torch(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
 # -------------------------------------------------------------------------
 
 def gauss_seidel_line(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-                      hx, hy, hz, nu, axis):
+                      hx, hy, hz, nu, axis, scale=None):
     """Line relaxation along ``axis``: nu sweeps, alternating order.
 
     Updates ``ex``, ``ey``, ``ez`` in place and returns them.  CUDA
@@ -429,7 +470,7 @@ def gauss_seidel_line(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     """
     if ex.device.type != "cpu":
         plan = line_phase.LinePlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
-                                   eta_z, zeta, hx, hy, hz, axis)
+                                   eta_z, zeta, hx, hy, hz, axis, scale)
         shape = (hx.numel(), hy.numel(), hz.numel())
         for sweep in range(nu):
             for c in line_phase_colors(shape, axis, sweep % 2 == 1):
@@ -439,12 +480,12 @@ def gauss_seidel_line(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     for sweep in range(nu):
         fields = gauss_seidel_line_sweep(
             *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, sweep % 2 == 1, axis)
+            hx, hy, hz, sweep % 2 == 1, axis, scale)
     return fields
 
 
 def gauss_seidel_line_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
-                            zeta, hx, hy, hz, reverse, axis):
+                            zeta, hx, hy, hz, reverse, axis, scale=None):
     """One 4-color line-relaxation sweep along ``axis`` (0, 1 or 2).
 
     ``reverse`` flips the color order.  Updates the fields in place and
@@ -455,7 +496,7 @@ def gauss_seidel_line_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
     for c in line_phase_colors(shape, axis, reverse):
         fields = gauss_seidel_line_phase(
             *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, *c, axis)
+            hx, hy, hz, *c, axis, scale)
     return fields
 
 
@@ -474,7 +515,7 @@ def line_phase_colors(shape_cells, axis, reverse):
 
 
 def gauss_seidel_line_phase(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
-                            zeta, hx, hy, hz, p1, p2, axis):
+                            zeta, hx, hy, hz, p1, p2, axis, scale=None):
     """Relax the lines along ``axis`` of transverse parity (p1, p2), in
     place (parities in the permuted frame, see :func:`line_phase_colors`).
 
@@ -485,24 +526,29 @@ def gauss_seidel_line_phase(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
     if ex.device.type == "cpu":
         return _line_relax_phase_torch(
             ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, p1, p2, axis)
+            hx, hy, hz, p1, p2, axis, scale)
     return line_phase.gauss_seidel_line_phase_cuda(
         ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-        hx, hy, hz, p1, p2, axis)
+        hx, hy, hz, p1, p2, axis, scale)
 
 
 def _line_relax_phase_torch(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
-                            zeta, hx, hy, hz, p1, p2, axis):
+                            zeta, hx, hy, hz, p1, p2, axis, scale=None):
     """Plain PyTorch line phase along ``axis``, IN PLACE.
 
     The y- and z-lines are the x-lines of the frame permuted by
     ``line_phase.FRAMES[axis]``: the x-line phase runs on permuted VIEWS of
-    the tensors, so its writes land in the original tensors.  The
+    the tensors, so its writes land in the original tensors.  Fields with
+    a leading task axis run task by task (:func:`_per_task`).  The
     reference the ``line_phase`` kernel is held against; it runs on any
     device.  Returns (ex, ey, ez).
     """
     if axis not in line_phase.FRAMES:
         raise ValueError(f"axis must be 0, 1, or 2; got {axis}.")
+    if ex.dim() == 4:
+        return _per_task(_line_relax_phase_torch, ex, ey, ez, sx, sy, sz,
+                         eta_x, eta_y, eta_z, zeta, hx, hy, hz,
+                         (p1, p2, axis), scale)
     if ex.is_cuda:
         line_phase.PLAIN_CALLS_ON_CUDA += 1
     tp = line_phase.FRAMES[axis]

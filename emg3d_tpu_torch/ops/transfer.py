@@ -14,6 +14,9 @@ reference (core.py:1620-2001; solver.py:947-1019) one code path.
 The operator-dependent weights (Muld06 Eq. 9 with the [MoSu94] boundary
 scheme; reference ``restrict_weights``, core.py:2004-2076) are tiny 1-D
 host-side numpy computations, precomputed per multigrid level.
+
+Grid axes are indexed from the end, so fields may carry a leading task
+axis ``(B, ...)`` (the batch engine); weights and ``pmeta`` are shared.
 """
 
 import numpy as np
@@ -58,20 +61,21 @@ def _bcast(w, axis):
 
 
 def _nodal_gather(r, axis, wl, w0, wr):
-    """Weighted 3-point nodal restriction along ``axis``.
+    """Weighted 3-point nodal restriction along grid ``axis``.
 
     Coarse node L gathers fine nodes (2L-1, 2L, 2L+1), clamped at the
     boundaries, with weights (wl[L], w0[L], wr[L]) (1-D tensors on the
     device of ``r``).
     """
-    n_f = r.shape[axis]
+    dim = axis - 3
+    n_f = r.shape[dim]
     n_c = wl.shape[0]
     idx0 = torch.arange(0, 2 * n_c, 2, device=r.device)
     idx_m = torch.clamp(idx0 - 1, min=0)
     idx_p = torch.clamp(idx0 + 1, max=n_f - 1)
-    return (_bcast(wl, axis) * r.index_select(axis, idx_m)
-            + _bcast(w0, axis) * r.index_select(axis, idx0)
-            + _bcast(wr, axis) * r.index_select(axis, idx_p))
+    return (_bcast(wl, axis) * r.index_select(dim, idx_m)
+            + _bcast(w0, axis) * r.index_select(dim, idx0)
+            + _bcast(wr, axis) * r.index_select(dim, idx_p))
 
 
 def _pair_sum(r, axis):
@@ -80,7 +84,7 @@ def _pair_sum(r, axis):
     sl_odd = [slice(None)] * 3
     sl_even[axis] = slice(0, None, 2)
     sl_odd[axis] = slice(1, None, 2)
-    return r[tuple(sl_even)] + r[tuple(sl_odd)]
+    return r[(Ellipsis, *sl_even)] + r[(Ellipsis, *sl_odd)]
 
 
 def restrict(rx, ry, rz, weights, coarsen):
@@ -137,10 +141,11 @@ def prolong_meta(cnodes, fnodes):
 
 
 def _nodal_prolong(c, axis, idx, w):
-    """Linear nodal interpolation along ``axis`` using precomputed meta."""
+    """Linear nodal interpolation along grid ``axis`` using precomputed
+    meta."""
     w = _bcast(w, axis)
-    lo = c.index_select(axis, idx)
-    hi = c.index_select(axis, idx + 1)
+    lo = c.index_select(axis - 3, idx)
+    hi = c.index_select(axis - 3, idx + 1)
     return (1.0 - w) * lo + w * hi
 
 
@@ -161,7 +166,7 @@ def prolong(ex, ey, ez, cex, cey, cez, pmeta, coarsen):
             if not coarsen[axis]:
                 continue
             if axis == own:
-                c = torch.repeat_interleave(c, 2, dim=axis)
+                c = torch.repeat_interleave(c, 2, dim=axis - 3)
             else:
                 c = _nodal_prolong(c, axis, *pmeta[axis])
 
@@ -170,7 +175,7 @@ def prolong(ex, ey, ez, cex, cey, cez, pmeta, coarsen):
         for axis in range(3):
             if axis != own:
                 sl[axis] = slice(1, -1)
-        sl = tuple(sl)
+        sl = (Ellipsis, *sl)
         e[sl].add_(c[sl])
         return e
 

@@ -7,11 +7,12 @@ lines).  Differences by design:
 - Per-(source, frequency) tasks are device work, not host processes: the
   reference's ProcessPoolExecutor fan-out (simulations.py:860-866) becomes
   a host-driven loop over the device solver via
-  :mod:`emg3d_tpu_torch.parallel.tasks`.  ``device`` says where every
+  :mod:`emg3d_tpu_torch.parallel.tasks` (``parallel='task'``), or one
+  batched solve per grid-sharing group of tasks via
+  :mod:`emg3d_tpu_torch.parallel.batch` (``parallel='batch'``: the tasks
+  are a leading axis of every field tensor).  ``device`` says where every
   solve and every magnetic-field evaluation runs: the CUDA card unless
   the caller passes ``device='cpu'``.
-- The batched engine of the JAX package (``parallel='batch'``) is not
-  ported yet: asking for it raises ``NotImplementedError``.
 - ``jvec``/the gradient's regridding adjoint do not need discretize: the
   edge-inner-product derivative and the volume-average adjoint are
   implemented natively (emg3d_tpu_torch.maps).
@@ -27,6 +28,7 @@ import numpy as np
 
 from emg3d_tpu_torch import (config, fields, io, maps, meshes, models,
                              utils)
+from emg3d_tpu_torch.parallel import batch as _batch
 from emg3d_tpu_torch.parallel import tasks as _tasks
 
 __all__ = ['Simulation']
@@ -58,8 +60,9 @@ class Simulation:
 
     # Optional constructor settings stored verbatim as attributes.
     # 'parallel' selects the survey fan-out: 'task' (host loop over the
-    # device solver; default).  'batch' ((source, freq) pairs as a
-    # leading batch axis) is a later slice of the port and raises.
+    # device solver; default) or 'batch' ((source, freq) pairs as a
+    # leading task axis of one batched solve per grid; every solve of the
+    # simulation goes through it).
     # 'shape_classes' (False | True | float max-growth factor) snaps the
     # per-task grids of the multi-grid gridding modes onto shared shape
     # classes (meshes.snap_shapes + pad_mesh_cells), as the JAX package
@@ -76,12 +79,6 @@ class Simulation:
         self.gridding = gridding
         for key, default in self._SIMPLE_KWARGS.items():
             setattr(self, key, kwargs.pop(key, default))
-
-        if self.parallel == 'batch':
-            raise NotImplementedError(
-                "`parallel='batch'` (the batched engine, "
-                "emg3d_tpu.parallel.batch) is not ported yet; use "
-                "`parallel='task'`.")
 
         self._init_solver_opts(kwargs.pop('solver_opts', {}),
                                kwargs.pop('device', None))
@@ -553,6 +550,8 @@ class Simulation:
         """Solve the electric fields (reference simulations.py:835-880)."""
         if not srcfreq[0][0]:
             srcfreq = self._srcfreq
+        if self.parallel == 'batch':
+            return self._compute_batch(srcfreq)
 
         def efield_payload(src, freq):
             return {
@@ -568,6 +567,90 @@ class Simulation:
         for (src, freq), (efield, einfo) in zip(srcfreq, out):
             self._dict_efield[src][freq] = efield
             self._dict_efield_info[src][freq] = einfo
+            self.data['synthetic'].loc[src, :, freq] = \
+                self._get_responses(src, freq)
+
+        self.print_solver_info('efield', verb=self.verb)
+
+    def _batch_setup(self, tol):
+        """The solver options of a batched solve: those the batch engine
+        takes, with the device, the working dtype and ``tol``."""
+        sopts = {k: v for k, v in self.solver_opts.items()
+                 if k in ('tol', 'maxit', 'cycle', 'sslsolver',
+                          'semicoarsening', 'linerelaxation', 'clevel',
+                          'nu_init', 'nu_pre', 'nu_coarse', 'nu_post',
+                          'verb', 'device', 'dtype')}
+        sopts['tol'] = tol
+        return sopts
+
+    def _batch_groups(self, srcfreq):
+        """Group (source, frequency) pairs by their computational grid.
+
+        The batch engine solves one grid per call; any gridding mode
+        parallelizes by batching each grid-sharing unit separately
+        (reference behavior: the process pool parallelizes EVERY mode,
+        _multiprocessing.py:33-69).  'same' yields one group;
+        'frequency'/'source'/'single'/'input' one group per shared
+        grid; 'both'/'dict' degenerate to per-task groups.  ``get_grid``
+        caches one grid OBJECT per sharing unit, so identity-grouping
+        is exact.  Returns ``[(pairs, model-on-that-grid), ...]``.
+        """
+        groups = {}
+        for src, freq in srcfreq:
+            grid = self.get_grid(src, freq)
+            groups.setdefault(id(grid), (grid, []))[1].append((src, freq))
+        out = []
+        for grid, pairs in groups.values():
+            gmodel = (self.model if grid is self.model.grid
+                      else self.get_model(*pairs[0]))
+            out.append((pairs, gmodel))
+        return out
+
+    def _store_batch_result(self, kind, srcfreq, fields_out, info):
+        """Unpack a batch solve into the per-task caches.
+
+        Mirrors what the task engine stores: its info-dict keys, and with
+        ``file_dir`` the field and info in the file the task engine's
+        worker writes (``tasks._task_output_path``).
+        """
+        dict_field = getattr(self, f'_dict_{kind}')
+        dict_info = getattr(self, f'_dict_{kind}_info')
+        for i, (src, freq) in enumerate(srcfreq):
+            task_info = {
+                'exit': int(info['exit_messages'][i] != 'CONVERGED'),
+                'exit_message': info['exit_messages'][i],
+                'abs_error': float(info['abs_error'][i]),
+                'rel_error': float(info['rel_error'][i]),
+                'it_mg': info['it_mg'],
+                'it_ssl': info['it_ssl'],
+                'tol': info['tol'],
+                'runtime': info['runtime'],
+            }
+            field = fields_out[i]
+            if self.file_dir:
+                fname = _tasks._task_output_path(os.path.join(
+                    self.file_dir, f"{kind}_{src}_{freq}.h5"))
+                io.save(fname, efield=field, info=task_info, verb=0)
+                field = task_info = fname
+            dict_field[src][freq] = field
+            dict_info[src][freq] = task_info
+
+    def _compute_batch(self, srcfreq):
+        """The pairs as one batched solve per grid-sharing group
+        (:func:`emg3d_tpu_torch.parallel.batch.solve_batch`)."""
+        sopts = self._batch_setup(self.tol_forward)
+
+        for pairs, gmodel in self._batch_groups(srcfreq):
+            sources = [self.survey.sources[src] for src, _ in pairs]
+            freqs = [self.survey.frequencies[f] for _, f in pairs]
+            guesses = [self._dict_get('efield', src, freq)
+                       for src, freq in pairs]
+
+            efields, info = _batch.solve_batch(
+                gmodel, sources, freqs, efields=guesses, **sopts)
+            self._store_batch_result('efield', pairs, efields, info)
+
+        for src, freq in srcfreq:
             self.data['synthetic'].loc[src, :, freq] = \
                 self._get_responses(src, freq)
 
@@ -742,23 +825,38 @@ class Simulation:
         return gradient[kept, ..., :self._input_sc2].squeeze()
 
     def _bcompute(self):
-        """Back-propagate the residual fields (simulations.py:1193-1233)."""
+        """Back-propagate the residual fields (simulations.py:1193-1233).
+
+        In ``parallel='batch'`` mode the adjoint sources stack like
+        forward source fields: one batched solve per grid-sharing group.
+        """
         for cache in ('_dict_bfield', '_dict_bfield_info'):
             self.__dict__.setdefault(cache, self._dict_initiate)
 
-        def bfield_payload(src, freq):
-            return {
-                'sfield': self._get_rfield(src, freq),
-                'efield': self._dict_get('bfield', src, freq),
-            }
+        if self.parallel == 'batch':
+            sopts = self._batch_setup(self.tol_gradient)
+            for pairs, gmodel in self._batch_groups(self._srcfreq):
+                rfields = [self._get_rfield(src, freq)
+                           for src, freq in pairs]
+                guesses = [self._dict_get('bfield', src, freq)
+                           for src, freq in pairs]
+                bfields, info = _batch.solve_batch_fields(
+                    gmodel, rfields, efields=guesses, **sopts)
+                self._store_batch_result('bfield', pairs, bfields, info)
+        else:
+            def bfield_payload(src, freq):
+                return {
+                    'sfield': self._get_rfield(src, freq),
+                    'efield': self._dict_get('bfield', src, freq),
+                }
 
-        out = self._solve_tasks('bfield', self._srcfreq,
-                                bfield_payload, 'Back-propagate',
-                                self.tol_gradient)
+            out = self._solve_tasks('bfield', self._srcfreq,
+                                    bfield_payload, 'Back-propagate',
+                                    self.tol_gradient)
 
-        for (src, freq), (bfield, binfo) in zip(self._srcfreq, out):
-            self._dict_bfield[src][freq] = bfield
-            self._dict_bfield_info[src][freq] = binfo
+            for (src, freq), (bfield, binfo) in zip(self._srcfreq, out):
+                self._dict_bfield[src][freq] = bfield
+                self._dict_bfield_info[src][freq] = binfo
 
         self.print_solver_info('bfield', verb=self.verb)
 
@@ -838,6 +936,19 @@ class Simulation:
 
         if 'jvec' not in self.data.keys():
             self.data['jvec'] = self._nan_responses()
+
+        if self.parallel == 'batch':
+            # Sensitivity sources batch like forward sources: one batched
+            # solve per grid-sharing group.
+            sopts = self._batch_setup(self.tol_gradient)
+            for pairs, gmodel in self._batch_groups(self._srcfreq):
+                gsrcs = [gfield_source(src, freq) for src, freq in pairs]
+                gfields, _ = _batch.solve_batch_fields(gmodel, gsrcs,
+                                                       **sopts)
+                for (src, freq), gfield in zip(pairs, gfields):
+                    self.data['jvec'].loc[src, :, freq] = \
+                        self._get_responses(src, freq, gfield)
+            return self.data['jvec'].data
 
         def gfield_payload(src, freq):
             return {'sfield': gfield_source(src, freq), 'efield': None}

@@ -237,12 +237,20 @@ class _Level:
     level; they are None on the coarsest.  ``ops64`` (level 0 only) holds
     the operator in complex128/float64 for the residual that decides
     convergence and for the Krylov matrix-vector product.
+
+    A level of the batch engine (:mod:`emg3d_tpu_torch.parallel.batch`)
+    holds eta for a leading task axis: stacked ``(B, nx, ny, nz)``, or
+    shared with the per-task ``scale`` (B,) in working precision and
+    ``scale64`` in the precision of ``ops64`` (task k's eta is
+    ``scale[k]`` times the shared one).
     """
 
     ops: tuple
     rw: Optional[tuple] = None
     pm: Optional[tuple] = None
     ops64: Optional[tuple] = None
+    scale: Optional[torch.Tensor] = None
+    scale64: Optional[torch.Tensor] = None
 
 
 def _current_sc_dir(sc_dir, shape):
@@ -380,15 +388,17 @@ class _Hierarchies:
         if key not in self._cache:
             akey = int(sc_dir)
             if akey not in self._acache:
-                self._acache[akey] = _build_hierarchy(
-                    self.vmodel, sc_dir, lr_dir,
-                    self.var.clevel[min(akey, 3)], self.var.device,
-                    self.dtypes)
+                self._acache[akey] = self._build(
+                    sc_dir, lr_dir, self.var.clevel[min(akey, 3)])
             meta0, levels = self._acache[akey]
             meta = tuple((shape, _current_lr_dir(lr_dir, shape), coarsen)
                          for shape, _, coarsen in meta0)
             self._cache[key] = (meta, levels)
         return self._cache[key]
+
+    def _build(self, sc_dir, lr_dir, clevel_max):
+        return _build_hierarchy(self.vmodel, sc_dir, lr_dir, clevel_max,
+                                self.var.device, self.dtypes)
 
 
 # ==========================================================================
@@ -408,16 +418,26 @@ def _smooth(e, s, lvl, c_lr_dir, nu):
     sweeps before the next one runs.
     """
     if c_lr_dir == 0:
-        e = smoothers.gauss_seidel(*e, *s, *lvl.ops, nu)
+        e = smoothers.gauss_seidel(*e, *s, *lvl.ops, nu, lvl.scale)
     for axis, dirs in LINE_AXES:
         if c_lr_dir in dirs:
-            e = smoothers.gauss_seidel_line(*e, *s, *lvl.ops, nu, axis)
+            e = smoothers.gauss_seidel_line(*e, *s, *lvl.ops, nu, axis,
+                                            lvl.scale)
     return e
+
+
+def _scaled(ops, scale):
+    """``ops`` with every task's eta: ``scale[k] * eta`` for a shared eta
+    with a per-task scale; unchanged without a scale."""
+    if scale is None:
+        return ops
+    sc = scale[:, None, None, None]
+    return (*(sc * c for c in ops[:3]), *ops[3:])
 
 
 def _restrict(e, s, lvl, coarsen):
     """Residual + restriction -> (coarse source, zero coarse guess)."""
-    res = operator.residual(*s, *e, *lvl.ops)
+    res = operator.residual(*s, *e, *_scaled(lvl.ops, lvl.scale))
     cs = transfer.restrict(*res, lvl.rw, coarsen)
     return cs, tuple(torch.zeros_like(c) for c in cs)
 
@@ -427,21 +447,24 @@ def _prolong(e, ce, lvl, coarsen):
     return transfer.prolong(*e, *ce, lvl.pm, coarsen)
 
 
-def _residual_norm_split(e_hi, e_lo, s, lvl):
+def _residual_norm_split(e_hi, e_lo, s, lvl, per_task=False):
     """Residual r = s - A (e_hi + e_lo) and its norm, in double precision.
 
     The split iterate and the source are promoted to complex128/float64
     and the residual is evaluated with the level-0 operator in that
     precision (``_residual_norm_split_f64_jit`` of the JAX package; no
-    double-single arithmetic is needed on hardware with FP64).  Returns
-    the residual in working precision and the norm as a float.
+    double-single arithmetic is needed on hardware with FP64), a shared
+    eta scaled by ``scale64``.  Returns the residual in working precision
+    and the norm as a float, or with ``per_task`` the norms of a task
+    axis as a (B,) device tensor.
     """
-    ops64 = lvl.ops64
+    ops64 = _scaled(lvl.ops64, lvl.scale64)
     up = ops64[0].dtype
     e = tuple(h.to(up) + l.to(up) for h, l in zip(e_hi, e_lo))
     r = operator.residual(*(c.to(up) for c in s), *e, *ops64)
-    l2 = float(operator.residual_norm(*r))
-    return tuple(c.to(e_hi[0].dtype) for c in r), l2
+    l2 = operator.residual_norm(*r, per_task=per_task)
+    return tuple(c.to(e_hi[0].dtype) for c in r), (l2 if per_task
+                                                   else float(l2))
 
 
 def _accumulate_(e_hi, e_lo, de):
@@ -467,7 +490,8 @@ def _cycle_correction(meta, levels, r, var, first):
     caller accumulate in split precision.  Includes the F-cycle's
     decreasing-cycmax mechanics (reference solver.py:519-526) and the
     coarsest-grid Gauss-Seidel solve (solver.py:566-578).  Returns the
-    correction ``de``.
+    correction ``de``.  The batch engine runs the same cycle on its
+    levels with a task axis.
     """
     nlevels = len(meta)
     cycle = var.cycle

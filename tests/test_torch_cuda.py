@@ -11,9 +11,14 @@ on the same card, norm-wise per output array on the entries the phase
 changed: complex128/float64 to 1e-12 (same arithmetic, another order and
 FMA contraction), complex64/float32 to 1e-5 for ``gs_phase`` and to 1e-6
 for ``line_phase`` (four times its measured error, so that a lost digit
-shows).  The survey layer on the card is held against the CPU path in
-complex128: ``get_magnetic_field`` to 1e-12 and the gradient of a 16^3
-``Simulation`` to 1e-8 of the largest entry.
+shows).  A batched launch (a leading task axis) equals single launches
+task by task: bit for bit with a stacked or a shared eta, and, with a
+per-task eta scale, to 1e-13 (complex128) and 1e-6 (complex64) against
+single launches on ``scale[k] * eta`` built by PyTorch.  The survey
+layer on the card is held against the CPU path in complex128:
+``get_magnetic_field`` to 1e-12, the gradient of a 16^3 ``Simulation``
+to 1e-8 of the largest entry, and ``solve_batch`` at 16^3 with the same
+iterations and fields to 1e-10.
 """
 
 import itertools
@@ -272,3 +277,157 @@ def test_simulation_gradient_card_equals_cpu(cuda):
     assert g_card.shape == (3, 16, 16, 16) and np.abs(g_cpu).max() > 0
     assert abs(m_card - m_cpu) <= 1e-8 * m_cpu
     assert np.abs(g_card - g_cpu).max() <= 1e-8 * np.abs(g_cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# The task index of both kernels (the batch engine): one launch relaxes one
+# color of every task.  Fields (B, ...); eta stacked (B, nx, ny, nz), or
+# shared with an optional per-task scale.
+# ---------------------------------------------------------------------------
+
+NTASK = 3
+# Norm-wise on the changed entries, against single launches on
+# scale[k] * eta built by PyTorch: the kernel scales on load, so the two
+# differ by the rounding of that product.
+SCALED_TOL = {torch.complex128: 1e-13, torch.complex64: 1e-6}
+
+
+def _batched_operands(shape, dtype, rdt, device, seed=5):
+    """(fields, sources, stacked eta, shared eta, zeta and widths, scales)
+    for NTASK tasks, from a numpy seed."""
+    tasks = [_operands(shape, dtype, rdt, device, seed=seed + k)
+             for k in range(NTASK)]
+    stack = [torch.stack([t[i] for t in tasks]) for i in range(9)]
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.5, 2.0, NTASK)
+    if dtype.is_complex:
+        scale = scale + 1j * rng.uniform(-1.0, 1.0, NTASK)
+    scale = torch.from_numpy(scale).to(device, dtype)
+    return (stack[:3], stack[3:6], stack[6:9], tasks[0][6:9],
+            tasks[0][9:], scale)
+
+
+def _single_launches(launch, e, s, eta_of, rest, args):
+    """The phase launched task by task on clones of the fields; task k
+    with eta ``eta_of(k)``."""
+    out = [c.clone() for c in e]
+    for k in range(NTASK):
+        launch(*(c[k] for c in out), *(c[k] for c in s), *eta_of(k),
+               *rest, *args)
+    return out
+
+
+def _batched_cases(shape, dtype, rdt, cuda):
+    """(name, eta, scale, eta of task k, bit for bit?) per layout."""
+    e, s, stacked, shared, rest, scale = _batched_operands(
+        shape, dtype, rdt, cuda)
+    ones = torch.ones_like(scale)
+    return e, s, rest, [
+        ("stacked", stacked, None, lambda k: [c[k] for c in stacked], True),
+        ("shared", shared, None, lambda k: shared, True),
+        ("scale 1", shared, ones, lambda k: shared, True),
+        ("scale", shared, scale, lambda k: [scale[k] * c for c in shared],
+         False)]
+
+
+def _check_batched(batched, single, plain, e, s, rest, cases, args, tol):
+    for name, eta, scale, eta_of, exact in cases:
+        out = [c.clone() for c in e]
+        batched(*out, *s, *eta, *rest, *args, scale=scale)
+        ref = _single_launches(single, e, s, eta_of, rest, args)
+        torch.cuda.synchronize()
+        if exact:
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b), name
+        else:
+            err = _rel_err(out, ref, e)
+            assert err <= SCALED_TOL[e[0].dtype], (name, err)
+        # The plain version, task by task, to the kernel's tolerance.
+        pl = [c.clone() for c in e]
+        plain(*pl, *s, *eta, *rest, *args, scale=scale)
+        assert _rel_err(out, pl, e) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,rdt,tol', DTYPES[:2])
+@pytest.mark.parametrize('shape', [(11, 10, 9), (4, 3, 2)])
+def test_gs_batched_equals_single_launches(cuda, dtype, rdt, tol, shape):
+    e, s, rest, cases = _batched_cases(shape, dtype, rdt, cuda)
+    launches = gs_phase.LAUNCHES
+    for color in smoothers.phase_colors(shape, False):
+        _check_batched(gs_phase.gauss_seidel_phase_cuda,
+                       gs_phase.gauss_seidel_phase_cuda,
+                       smoothers._gauss_seidel_phase_torch, e, s, rest,
+                       cases, color, tol)
+    # One launch per batched phase, NTASK per layout for the references.
+    ncolors = len(smoothers.phase_colors(shape, False))
+    assert gs_phase.LAUNCHES - launches == ncolors * 4 * (1 + NTASK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,rdt,tol', LINE_DTYPES)
+@pytest.mark.parametrize('shape', [(9, 6, 7), (2, 5, 4), (16, 3, 2)])
+@pytest.mark.parametrize('axis', [0, 1, 2])
+def test_line_batched_equals_single_launches(cuda, dtype, rdt, tol, shape,
+                                             axis):
+    e, s, rest, cases = _batched_cases(shape, dtype, rdt, cuda)
+    for color in smoothers.line_phase_colors(shape, axis, False):
+        _check_batched(line_phase.gauss_seidel_line_phase_cuda,
+                       line_phase.gauss_seidel_line_phase_cuda,
+                       smoothers._line_relax_phase_torch, e, s, rest,
+                       cases, (*color, axis), tol)
+
+
+@pytest.mark.cuda
+def test_one_task_is_the_unbatched_kernel(cuda):
+    """A task axis of 1, no scale, equals the 3-D launch bit for bit."""
+    base = _operands((9, 6, 7), torch.complex64, torch.float32, cuda)
+    for launch, args in (
+            (gs_phase.gauss_seidel_phase_cuda, (1, 0, 1)),
+            (line_phase.gauss_seidel_line_phase_cuda, (1, 0, 2))):
+        flat = [t.clone() for t in base]
+        one = [t.clone()[None] for t in base[:6]]
+        launch(*flat, *args)
+        launch(*one, *base[6:], *args)
+        torch.cuda.synchronize()
+        for a, b in zip(one[:3], flat[:3]):
+            assert torch.equal(a[0], b)
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_reject_bad_layouts(cuda):
+    e, s, stacked, shared, rest, scale = _batched_operands(
+        (5, 4, 3), torch.complex64, torch.float32, cuda)
+    for plan, extra in ((gs_phase.GsPlan, ()), (line_phase.LinePlan, (0,))):
+        with pytest.raises(ValueError, match='shared eta'):
+            plan(*e, *s, *stacked, *rest, *extra, scale=scale)
+        with pytest.raises(ValueError, match='shape'):
+            plan(*e, *s, *shared, *rest, *extra, scale=scale[:2])
+        with pytest.raises(TypeError, match='dtype'):
+            plan(*e, *s, *shared, *rest, *extra,
+                 scale=scale.to(torch.complex128))
+        with pytest.raises(ValueError, match='shape'):
+            plan(*e, *s, *[c[:2] for c in stacked], *rest, *extra)
+
+
+@pytest.mark.cuda
+def test_solve_batch_card_equals_cpu(cuda):
+    """The production configuration over 3 frequencies, complex128: the
+    card equals the CPU, iterations and fields to 1e-10."""
+    import emg3d_tpu_torch as t3
+
+    _, model = _survey(16)
+    sources = [(0., 0., 0., 20., 10.)] * 3
+    freqs = [0.5, 1.0, 2.0]
+    opts = dict(sslsolver=True, semicoarsening=True, linerelaxation=True,
+                tol=1e-6, dtype=torch.complex128)
+    launches = line_phase.LAUNCHES
+    card, i_card = t3.solve_batch(model, sources, freqs, **opts)
+    assert line_phase.LAUNCHES > launches
+    cpu, i_cpu = t3.solve_batch(model, sources, freqs, device='cpu', **opts)
+    assert (i_card['it_mg'], i_card['it_ssl']) == (i_cpu['it_mg'],
+                                                   i_cpu['it_ssl'])
+    assert i_card['exit_messages'] == ['CONVERGED'] * 3
+    for a, b in zip(card, cpu):
+        assert (np.linalg.norm(a.field - b.field)
+                <= 1e-10 * np.linalg.norm(b.field))

@@ -10,8 +10,8 @@ module.  Tolerances: synthetic data, misfit and gradient rtol 1e-8 (atol
 1e-8 of the largest entry), ``jvec`` and ``jtvec`` rtol 1e-7, the same
 ``it_mg`` per task.  Every gridding mode gives the same grids (``h`` and
 ``origin`` identical); ``file_dir`` gives the same data as in memory;
-dicts and files carry the simulation, its device and its dtype;
-``parallel='batch'`` raises.
+dicts and files carry the simulation, its device and its dtype
+(``parallel='batch'`` is held in tests/test_torch_sim_batch.py).
 """
 
 import numpy as np
@@ -301,12 +301,6 @@ def test_device_and_dtype_options(monkeypatch):
     sim = t3.Simulation(model=model, device='cpu', **{
         **sim_inp, 'solver_opts': dict(opts, device='cuda')})
     assert sim.solver_opts['device'] == 'cpu'
-
-
-def test_batch_raises():
-    model, sim_inp = make_inputs(t3)
-    with pytest.raises(NotImplementedError, match="parallel='batch'"):
-        t3.Simulation(model=model, parallel='batch', **sim_inp)
 
 
 def test_constructor_errors():

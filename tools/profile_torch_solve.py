@@ -1,6 +1,6 @@
 """Where the time of one solve of the PyTorch port goes, on one CUDA card.
 
-    python3 -m tools.profile_torch_solve [triaxial|baseline|marine|salt] [n]
+    python3 -m tools.profile_torch_solve [triaxial|baseline|marine|salt|batch] [n]
 
 Solves one north-star problem through ``emg3d_tpu_torch.solve`` (after a
 warm-up solve at 32 cells a side) under ``torch.profiler`` and prints:
@@ -17,6 +17,10 @@ gradient on the model whose salt is 0.8 times as resistive, each with its
 wall time, the time inside and outside ``solve`` and the host functions
 that take most of it (``cProfile``, own time); then one forward task
 under ``torch.profiler`` as for the other cases.
+
+``batch`` is the batch engine: the ``triaxial`` problem's source at 0.25,
+0.5, 1 and 2 Hz as one ``solve_batch_fields`` call (the default solver's
+options given in full), under ``torch.profiler`` as above.
 
 The problems and their options are those of ``emg3d_tpu_torch.northstar``.
 Run from the repo root; imports nothing of JAX; needs a card.
@@ -80,6 +84,33 @@ def salt_task(n):
     return task, f"salt {model.shape}, the forward task of source 1"
 
 
+def batch_task(n):
+    """One batched solve of four frequencies (after a warm-up at 32^3);
+    returns it as a function, and a label."""
+    from emg3d_tpu_torch import get_source_field, solve_batch_fields
+
+    freqs = (0.25, 0.5, 1.0, 2.0)
+    opts = dict(sslsolver=True, semicoarsening=True, linerelaxation=True,
+                tol=1e-6)
+
+    def sources(model):
+        return [get_source_field(model.grid, (0., 0., 0., 0., 0.), f)
+                for f in freqs]
+
+    small, _ = northstar.triaxial_problem(32)
+    solve_batch_fields(small, sources(small), **opts)      # warm-up
+    model, _ = northstar.triaxial_problem(n)
+    sfields = sources(model)
+
+    def task():
+        _, info = solve_batch_fields(model, sfields, **opts)
+        return {'it_ssl': info['it_ssl'], 'it_mg': info['it_mg'],
+                'rel_error': float(info['rel_error'].max()),
+                'exit_message': sorted(set(info['exit_messages']))}
+
+    return task, f"triaxial {model.shape} x {len(freqs)} frequencies, batched"
+
+
 def main():
     case = sys.argv[1] if len(sys.argv) > 1 else "triaxial"
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 128
@@ -97,6 +128,8 @@ def main():
     if case == "salt":
         solve(*northstar.triaxial_problem(32), tol=1e-6)    # warm-up
         task, label = salt_task(n)
+    elif case == "batch":
+        task, label = batch_task(n)
     else:
         make = getattr(northstar, f"{case}_problem")
         kw = northstar.SOLVE_OPTIONS[case]

@@ -47,7 +47,7 @@ import subprocess
 import torch
 
 import chip_smoke
-from emg3d_tpu_torch.ops import _build, line_phase, smoothers
+from emg3d_tpu_torch.ops import _build, _operands, line_phase, smoothers
 
 CHECK_SHAPES = {0: [(48, 10, 12), (128, 4, 2)], 1: [(10, 48, 12), (2, 64, 2)],
                 2: [(12, 10, 48)]}
@@ -59,7 +59,7 @@ def plan_of(source, tensors, axis):
     with the entry point of ``csrc/<source>.cu`` in place of its own."""
     plan = line_phase.LinePlan(*tensors, axis)
     if source != "line_phase":
-        entry = line_phase._ENTRY[tensors[0].dtype][0]
+        entry = plan._fn.__name__
         fn = getattr(_build.load(source), entry)
         fn.argtypes, fn.restype = plan._fn.argtypes, plan._fn.restype
         plan._fn = fn
@@ -202,13 +202,13 @@ def breakdown():
 
     def checks():
         for name, t, shp, d in named:
-            line_phase._check(name, t, device, d, shp)
+            _operands._check("line_phase", name, t, device, d, shp)
 
     def geometry():
         frame, strides, _ = line_phase.line_geometry(
             shape, (ex.stride(), ey.stride(), ez.stride(), zeta.stride()),
             axis)
-        return (ctypes.c_int64 * 15)(*frame, *strides)
+        return (ctypes.c_int64 * 20)(*frame, *strides, 0, 0, 0, 0, 0)
 
     def device_context():
         with torch.cuda.device(device):
@@ -222,7 +222,7 @@ def breakdown():
         ("scratch torch.empty",
          lambda: torch.empty(nscratch, dtype=dt, device=device)),
         ("14 pointers (view_as_real, data_ptr)",
-         lambda: [line_phase._ptr(t) for t in (*args, plan._scratch)]),
+         lambda: [_operands.ptr(t) for t in (*args, plan._scratch)]),
         ("stream lookup",
          lambda: torch.cuda.current_stream(device).cuda_stream),
         ("torch.cuda.device context", device_context),
