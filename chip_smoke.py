@@ -9,6 +9,10 @@ Phases (any failure raises, and the script exits non-zero):
 2. Build: both kernels from ``emg3d_tpu_torch/csrc`` (``gs_phase`` and
    ``line_phase``), one ``nvcc`` each, started together; nvcc seconds
    and the ``-Xptxas -v`` registers and spills of every instantiation.
+   Then, before any kernel check, a new process whose first launches are
+   its first solve: the 32^3 triaxial problem with the default solver,
+   every cycle a whole-cycle CUDA graph (``EMG3D_TPU_CYCLE_JIT`` unset,
+   so ``auto``); it must converge with captures and replays.
 3. The level shapes of the main paths (6 below), read from the
    hierarchies the solver builds for them: every level whose effective
    line-relaxation direction is 0 runs ``gs_phase``, every other level
@@ -42,7 +46,18 @@ Phases (any failure raises, and the script exits non-zero):
    c. semicoarsening and line-relaxation F-cycles on the 128 x 128 x 64
       marine model (water, stretched sediments, resistive target).
    Each must converge below 1e-6 through the kernels of its path, with
-   no call of a plain version on CUDA.
+   no call of a plain version on CUDA.  Each is solved four times in a
+   row (``CYCLE_RUNS``): three times with whole-cycle CUDA graphs (the
+   default; the third under ``torch.profiler``), then operation by
+   operation (``EMG3D_TPU_CYCLE_JIT=0``); wall time, cells/s,
+   iterations, captures and replays, launches and peak memory of each.
+   The graph solves must equal the per-operation one: iterations and
+   exit message, fields to 1e-12 relative in norm (bit for bit
+   expected).  The second and third capture nothing and launch nothing
+   through the kernels' wrappers (every smoothing phase runs inside a
+   replay); the kernels the third runs on the card, counted by the
+   profiler, equal the per-operation solve's launches.  The launches in
+   the kernels' record are the per-operation solve's.
 7. Card against CPU in complex128: the default solve of a 16^3
    stretched triaxial grid (same it_ssl, it_mg and exit message, fields
    to 1e-10) and plain F-cycles on a 32^3 stretched grid (same cycles,
@@ -59,7 +74,11 @@ Phases (any failure raises, and the script exits non-zero):
    kernels with no plain call on CUDA; data, misfit, gradient and
    ``jvec`` finite, the gradient not zero and, in the layers that cut
    the salt, largest at its flank (with respect to conductivity:
-   inside it).
+   inside it).  Every solve runs on whole-cycle graphs, from an empty
+   step cache, as in a new process; the captures and replays of the
+   phase are printed, and its launch counts are those through the
+   wrappers (the first use of each step and the launches recorded at
+   its capture; replays do not pass through the wrappers).
 9. Adjointness on the card: <w, Re(J v)> against <v, J^T w> on a 32^3
    stretched triaxial ``LgResistivity`` survey of 2 sources x 2
    frequencies, ``tol`` and ``tol_gradient`` 1e-9 in the card's default
@@ -105,6 +124,19 @@ The batch engine (``emg3d_tpu_torch.parallel.batch``):
     the same run: data to 1e-4, misfit, gradient and ``jvec`` to
     ``SURVEY_BATCH_LIMITS``.
 
+The inversion (``emg3d_tpu_torch.inversion``):
+
+14. ``inversion.native.minimize`` (L-BFGS-B, 3 iterations) of the salt
+    survey at 64^3 with 4 sources through ``Simulation`` with no device,
+    in ``LgResistivity``: observed data of the true model, start model
+    with the salt 0.8 times as resistive.  Per evaluation the misfit, the
+    iterations of every task, seconds, captures and replays, from an
+    empty step cache.  Every solve converges below 1e-6, the misfit
+    falls, the first evaluation captures and no later one does, replays
+    are at least ten times the captures, and
+    the first evaluation's misfit and gradient equal a per-operation
+    evaluation (``EMG3D_TPU_CYCLE_JIT=0``) of the start model to 1e-10.
+
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -113,11 +145,13 @@ import concurrent.futures
 import importlib.util
 import itertools
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -126,12 +160,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 KERNELS = {
     "gs_phase": {
         "source": "emg3d_tpu_torch/csrc/gs_phase.cu",
+        "symbol": "gs_phase_kernel",
         "replaces": ("emg3d_tpu/ops/pallas_gs.py:452 "
                      "(gauss_seidel_phase_pallas); "
                      "emg3d_tpu/ops/pallas_gs.py:663 "
                      "(gauss_seidel_phase_pallas_tiled)")},
     "line_phase": {
         "source": "emg3d_tpu_torch/csrc/line_phase.cu",
+        "symbol": "line_phase_kernel",
         "replaces": ("none (XLA lax.scan line phase, "
                      "emg3d_tpu/ops/smoothers.py:791-850)")},
 }
@@ -802,38 +838,130 @@ def kernel_counts(reset=False):
     return {k: (m.LAUNCHES, m.PLAIN_CALLS_ON_CUDA) for k, m in mods.items()}
 
 
-def drive(label, problem, kernels, **kw):
+def executed_kernels(prof):
+    """{kernel: runs on the card} in a ``torch.profiler`` trace, by the
+    kernel's symbol: launched one by one or replayed in a CUDA graph."""
+    runs = dict.fromkeys(KERNELS, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k, v in KERNELS.items():
+                runs[k] += v["symbol"] in e.name
+    return runs
+
+
+def drive(label, problem, kernels, profiled=False, **kw):
     """Solve ``problem`` through ``emg3d_tpu_torch.solve`` with every
-    launch count set to 0 just before and read just after; check that it
-    converged through each kernel of ``kernels`` and called no plain
-    version on CUDA.  Returns {kernel: launches}."""
-    from emg3d_tpu_torch import solve
+    launch count and both whole-cycle counts set to 0 just before and read
+    just after; check that it converged and called no plain version on
+    CUDA.  With ``profiled`` the solve runs under ``torch.profiler``.
+    Returns the run: {kernel: launches}, with ``profiled`` {kernel: runs
+    on the card}, the field, the info, seconds, peak memory, captures and
+    replays."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from emg3d_tpu_torch import solve, solver
 
     model, sfield = problem
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel_counts(reset=True)
-    t0 = time.perf_counter()
-    efield, info = solve(model, sfield, return_info=True, **kw)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    solver.reset_counts()
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        efield, info = solve(model, sfield, return_info=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     counts = kernel_counts()
+    run = {"launches": {k: c[0] for k, c in counts.items()},
+           "executed": executed_kernels(prof) if profiled else None,
+           "field": np.asarray(efield.field), "info": info, "seconds": dt,
+           "peak": torch.cuda.max_memory_allocated(),
+           "reserved": torch.cuda.max_memory_reserved(),
+           "captures": solver.CYCLE_CAPTURES,
+           "replays": solver.CYCLE_REPLAYS}
     cells = int(np.prod(model.shape))
-    field = np.asarray(efield.field)
+    field = run["field"]
     log(f"[solve] {label} {model.shape}: {dt!r} s, {cells / dt:.0f} "
         f"cells/s, it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, "
         f"rel_error {info['rel_error']!r}, {info['exit_message']}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
-        f"launches {({k: c[0] for k, c in counts.items()})}, plain calls "
-        f"on cuda {({k: c[1] for k, c in counts.items()})}")
+        f"max_memory_allocated {run['peak']} B (reserved "
+        f"{run['reserved']} B, the graphs' pool included), launches "
+        f"through the wrappers {run['launches']}, plain calls on cuda "
+        f"{({k: c[1] for k, c in counts.items()})}, cycle graphs: "
+        f"{run['captures']} captures, {run['replays']} replays"
+        + (f", kernels run on the card (profiler) {run['executed']}"
+           if profiled else ""))
     check(info['exit'] == 0, (label, info['exit_message']))
     check(info['rel_error'] < 1e-6, (label, info['rel_error']))
-    for name in kernels:
-        check(counts[name][0] > 0, (label, name, "not launched"))
+    done = run["executed"] if profiled else run["launches"]
+    if profiled or solver.CYCLE_CAPTURES or not solver.CYCLE_REPLAYS:
+        for name in kernels:
+            check(done[name] > 0, (label, name, "not launched"))
     check(all(c[1] == 0 for c in counts.values()), (label, counts))
     check(field.shape == (sfield.field.size,))
     check(np.all(np.isfinite(field)) and np.abs(field).max() > 0)
-    return {k: c[0] for k, c in counts.items()}
+    return run
+
+
+# The runs of every main path: three times with whole-cycle CUDA graphs
+# (the default; the third under the profiler), then once operation by
+# operation.
+CYCLE_RUNS = (("graph", "auto"), ("graph again", "auto"),
+              ("graph, profiled", "auto"), ("per-operation", "0"))
+
+
+def drive_modes(label, problem, kernels, **kw):
+    """``drive`` the path in each mode of ``CYCLE_RUNS``, in one process.
+    The graph solves must equal the per-operation solve (iterations, exit
+    message, fields to 1e-12 relative in norm); the second and third
+    graph solves must capture nothing and launch nothing through the
+    wrappers, and the kernels the third runs on the card (profiler) must
+    equal the per-operation solve's launches.  Returns the per-operation
+    solve's {kernel: launches}."""
+    runs = {}
+    for run, mode in CYCLE_RUNS:
+        os.environ["EMG3D_TPU_CYCLE_JIT"] = mode
+        try:
+            runs[run] = drive(f"{label} [{run}]", problem, kernels,
+                              profiled=run == "graph, profiled", **kw)
+        finally:
+            del os.environ["EMG3D_TPU_CYCLE_JIT"]
+    ref = runs["per-operation"]
+    cells = int(np.prod(problem[0].shape))
+    for run in ("graph", "graph again", "graph, profiled"):
+        out = runs[run]
+        diff = rel_err(torch.from_numpy(out["field"]),
+                       torch.from_numpy(ref["field"]))
+        log(f"[cycle graph] {label} [{run}] against [per-operation]: "
+            f"{out['seconds']!r} s against {ref['seconds']!r} s "
+            f"({ref['seconds'] / out['seconds']:.3f}x; "
+            f"{cells / out['seconds']:.0f} against "
+            f"{cells / ref['seconds']:.0f} cells/s), peak "
+            f"{out['peak']} B against {ref['peak']} B (reserved "
+            f"{out['reserved']} B against {ref['reserved']} B), fields' "
+            f"largest difference "
+            f"{float(np.abs(out['field'] - ref['field']).max())!r}"
+            f" (relative in norm {diff!r}), bit for bit "
+            f"{bool(np.array_equal(out['field'], ref['field']))}")
+        for key in ("it_ssl", "it_mg", "exit_message"):
+            check(out["info"][key] == ref["info"][key], (label, run, key))
+        check(diff <= 1e-12, (label, run, diff))
+        check(out["replays"] > 0, (label, run, "no replay"))
+    for run in ("graph again", "graph, profiled"):
+        out = runs[run]
+        check(out["captures"] == 0, (label, run, "captured again"))
+        check(not any(out["launches"].values()),
+              (label, run, "launched outside a replay", out["launches"]))
+    executed = runs["graph, profiled"]["executed"]
+    log(f"[cycle graph] {label}: kernels run on the card by the replays "
+        f"of the profiled graph solve {executed}, launches of the "
+        f"per-operation solve {ref['launches']}")
+    check(executed == ref["launches"], (label, executed, ref["launches"]))
+    return ref["launches"]
 
 
 def main_problems():
@@ -852,16 +980,42 @@ def phase_main_paths(problems):
     # Warm-up of both paths at a small size (first-call costs).
     solve(*northstar.baseline_problem(32), tol=1e-6, **opts["baseline"])
     solve(*northstar.triaxial_problem(32), tol=1e-6, **opts["triaxial"])
-    plain = drive("BASELINE plain F-cycles", problems["baseline"],
-                  ["gs_phase"], tol=1e-6, **opts["baseline"])
+    plain = drive_modes("BASELINE plain F-cycles", problems["baseline"],
+                        ["gs_phase"], tol=1e-6, **opts["baseline"])
     check(plain["line_phase"] == 0, plain)
-    default = drive("triaxial default solver", problems["triaxial"],
-                    ["gs_phase", "line_phase"], tol=1e-6,
-                    **opts["triaxial"])
-    marine = drive("marine sc+lr F-cycles", problems["marine"],
-                   ["line_phase"], tol=1e-6, **opts["marine"])
+    default = drive_modes("triaxial default solver", problems["triaxial"],
+                          ["gs_phase", "line_phase"], tol=1e-6,
+                          **opts["triaxial"])
+    marine = drive_modes("marine sc+lr F-cycles", problems["marine"],
+                         ["line_phase"], tol=1e-6, **opts["marine"])
     return {"baseline_plain_128": plain, "triaxial_default_128": default,
             "marine_sclr_128x128x64": marine}
+
+
+def phase_fresh_graph_solve():
+    """A new process whose first kernel launches are its first solve (the
+    kernels are built, not yet loaded): the triaxial 32^3 problem with
+    the default solver on the card, whole-cycle graphs on (``auto``), must
+    converge with captures and replays."""
+    code = ("import json\n"
+            "from emg3d_tpu_torch import northstar, solve, solver\n"
+            "ef, info = solve(*northstar.triaxial_problem(32), tol=1e-6,\n"
+            "                 return_info=True)\n"
+            "print(json.dumps({k: info[k] for k in ('exit', 'exit_message',"
+            " 'it_ssl', 'it_mg', 'rel_error')} | {'captures': "
+            "solver.CYCLE_CAPTURES, 'replays': solver.CYCLE_REPLAYS}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != "EMG3D_TPU_CYCLE_JIT"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, proc.stderr[-4000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[fresh process] triaxial 32^3, default solver, graphs on: "
+        f"{out} ({time.perf_counter() - t0:.1f} s with the start of the "
+        f"process)")
+    check(out["exit"] == 0 and out["rel_error"] < 1e-6, out)
+    check(out["captures"] > 0 and out["replays"] > 0, out)
 
 
 def stretched_triaxial(n, seed):
@@ -928,7 +1082,7 @@ def phase_survey(n=128, nsrc=8):
     """The salt-class ``n``^3 survey of ``nsrc`` sources.  Returns
     {kernel: launches} of the whole phase and its results (synthetic
     and observed data, misfit, gradient, ``jvec``)."""
-    from emg3d_tpu_torch import Simulation, northstar
+    from emg3d_tpu_torch import Simulation, northstar, solver
 
     survey, model, kw = northstar.salt_survey(n, nsrc)
     kw['tqdm_opts'] = False
@@ -941,9 +1095,11 @@ def phase_survey(n=128, nsrc=8):
         f"{model.property_x[~salt].min():.2f}-"
         f"{model.property_x[~salt].max():.2f} Ohm m")
 
+    solver._STEPS.clear()       # the survey captures its own steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel_counts(reset=True)
+    solver.reset_counts()
     stages = {}
 
     def stage(name, nsolves, fn):
@@ -1059,12 +1215,16 @@ def phase_survey(n=128, nsrc=8):
         f"solve (forward pass alone "
         f"{100 * (1 - stages['forward'][1] / stages['forward'][0]):.1f} %); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
-        f"launches {({k: c[0] for k, c in counts.items()})} "
-        f"({({k: c[0] // nsolves for k, c in counts.items()})} per solve), "
-        f"plain calls on cuda {({k: c[1] for k, c in counts.items()})}")
+        f"launches through the wrappers (first uses and captures; replays "
+        f"do not pass through them) "
+        f"{({k: c[0] for k, c in counts.items()})}, plain calls on cuda "
+        f"{({k: c[1] for k, c in counts.items()})}; cycle graphs: "
+        f"{solver.CYCLE_CAPTURES} captures, {solver.CYCLE_REPLAYS} "
+        f"replays")
     for name, (launches, plain) in counts.items():
         check(launches > 0, (name, "not launched on the survey path"))
         check(plain == 0, (name, "plain calls on CUDA", plain))
+    check(solver.CYCLE_REPLAYS > solver.CYCLE_CAPTURES, "survey replays")
     results = {"synthetic": synthetic, "observed": observed.copy(),
                "misfit": misfit, "gradient": grad, "jvec": jvec}
     return {k: c[0] for k, c in counts.items()}, results
@@ -1473,6 +1633,104 @@ def phase_survey_card_vs_cpu():
         f"{importlib.util.find_spec('h5py') is not None}")
 
 
+def lg_model(model):
+    """``model`` (isotropic, resistivity) in the mapping of the inversion
+    tests, log10 of the resistivity."""
+    from emg3d_tpu_torch import Model
+
+    return Model(model.grid, property_x=np.log10(model.property_x),
+                 mapping='LgResistivity')
+
+
+def phase_inversion(n=64, nsrc=4, maxiter=3):
+    """``inversion.native.minimize`` (L-BFGS-B, ``maxiter`` iterations) of
+    the salt survey at ``n``^3 with ``nsrc`` sources through
+    ``Simulation`` with no device: observed data of the true model, start
+    model with the salt 0.8 times as resistive, in ``LgResistivity``.
+    Every solve converges; the misfit falls; after the first evaluation
+    nothing is captured; the first evaluation equals a per-operation
+    evaluation (``EMG3D_TPU_CYCLE_JIT=0``) of the same model to 1e-10."""
+    from emg3d_tpu_torch import Simulation, northstar, solver
+    from emg3d_tpu_torch.inversion import native
+
+    t_start = time.perf_counter()
+    survey, model, kw = northstar.salt_survey(n, nsrc)
+    kw['tqdm_opts'] = False
+    true = Simulation(survey, lg_model(model), **kw)
+    check(true.device == 'cuda', true.device)
+    true.compute(observed=True, add_noise=False)
+    observed = np.asarray(true.data.observed).copy()
+    start = lg_model(northstar.salt_model(model.grid, salt_scale=0.8))
+
+    def simulation():
+        obs_survey = northstar.salt_survey(n, nsrc)[0]
+        obs_survey.data['observed'] = observed
+        return Simulation(obs_survey, start, **kw)
+
+    def its(sim):
+        return [i for which in ('efield', 'bfield')
+                for i in check_tasks(sim, which, 1e-6)]
+
+    # The per-operation evaluation of the start model.
+    os.environ["EMG3D_TPU_CYCLE_JIT"] = "0"
+    try:
+        ref_sim = simulation()
+        fun, _, m0 = native._make_objective(ref_sim)
+        t0 = time.perf_counter()
+        phi_ref, grad_ref = fun(m0)
+        dt_ref = time.perf_counter() - t0
+        its_ref = its(ref_sim)
+    finally:
+        del os.environ["EMG3D_TPU_CYCLE_JIT"]
+    log(f"[inversion] salt {model.shape} x {nsrc} sources, per-operation "
+        f"evaluation of the start model: misfit {phi_ref!r}, (it_ssl, it_mg)"
+        f" per task {its_ref}, {dt_ref:.2f} s")
+
+    evals = []
+    make_objective = native._make_objective
+
+    def traced(sim):
+        fun, set_model, m0 = make_objective(sim)
+
+        def evaluate(m):
+            solver.reset_counts()
+            t0 = time.perf_counter()
+            phi, grad = fun(m)
+            dt = time.perf_counter() - t0
+            evals.append((phi, grad.copy(), solver.CYCLE_CAPTURES,
+                          solver.CYCLE_REPLAYS))
+            log(f"[inversion] evaluation {len(evals)}: misfit {phi!r}, "
+                f"(it_ssl, it_mg) per task {its(sim)}, {dt:.2f} s, cycle "
+                f"graphs: {solver.CYCLE_CAPTURES} captures, "
+                f"{solver.CYCLE_REPLAYS} replays")
+            return phi, grad
+
+        return evaluate, set_model, m0
+
+    sim = simulation()
+    solver._STEPS.clear()       # the inversion captures its own steps
+    with unittest.mock.patch.object(native, '_make_objective', traced):
+        result = native.minimize(sim, maxiter=maxiter, verb=0)
+    phi1, grad1 = evals[0][:2]
+    err_phi = abs(phi1 - phi_ref) / phi_ref
+    err_grad = float(np.linalg.norm(grad1 - grad_ref)
+                     / np.linalg.norm(grad_ref))
+    captures = sum(e[2] for e in evals)
+    replays = sum(e[3] for e in evals)
+    log(f"[inversion] {result!r}: {result.message}; misfit {result.misfit0!r}"
+        f" -> {result.misfit!r}; {captures} captures, {replays} replays in "
+        f"{len(evals)} evaluations; first evaluation against the "
+        f"per-operation one: misfit {err_phi!r}, gradient {err_grad!r} "
+        f"(relative); {time.perf_counter() - t_start:.1f} s")
+    check(result.model is sim.model, "result model")
+    check(np.isfinite(result.misfit) and result.misfit < result.misfit0,
+          (result.misfit0, result.misfit))
+    check(evals[0][2] > 0, "evaluation 1 captured nothing")
+    check(all(e[2] == 0 for e in evals[1:]), "captured after evaluation 1")
+    check(replays >= 10 * captures, (captures, replays))
+    check(err_phi <= 1e-10 and err_grad <= 1e-10, (err_phi, err_grad))
+
+
 def main():
     start = time.perf_counter()
     seconds = {}
@@ -1485,6 +1743,7 @@ def main():
 
     smi, name = timed("card", phase_card)
     timed("build", phase_build)
+    timed("fresh process", phase_fresh_graph_solve)
     problems = main_problems()
     gs_shapes, line_shapes = timed("levels", phase_path_levels, problems)
     gs_abs, gs_times, gs_bound = timed("gs_phase", phase_gs_vs_plain,
@@ -1503,6 +1762,7 @@ def main():
         "solve_batch", phase_solve_batch, problems)
     paths["salt_survey_128_8src_batch"] = timed(
         "survey batch", phase_survey_batch, survey_results)
+    timed("inversion", phase_inversion)
     log(f"[time] seconds per phase {seconds}; "
         f"{time.perf_counter() - start:.1f} s in all")
     measured = {"gs_phase": (gs_abs, gs_times, gs_bound),

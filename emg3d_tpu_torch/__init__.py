@@ -18,7 +18,10 @@ semicoarsening and line relaxation, or stand-alone multigrid
 ``Simulation`` (forward fields, misfit, adjoint-state gradient,
 ``jvec``/``jtvec``) over the sequential task engine or the batched one
 (``parallel='batch'``); magnetic fields; ``save``/``load``; the
-``Fourier`` time-domain transform.
+``Fourier`` time-domain transform; ``inversion.native.minimize`` (imported
+on first use, as in emg3d_tpu).  On the card every multigrid cycle runs as
+a replay of a captured CUDA graph (``EMG3D_TPU_CYCLE_JIT``, as in
+emg3d_tpu).
 """
 
 # ``convert`` is, as in emg3d_tpu, the function of ``io``; the module

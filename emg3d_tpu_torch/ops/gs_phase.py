@@ -18,7 +18,9 @@ may carry a leading task axis: one launch relaxes one color of every task
 (see ``_operands`` for the layouts).  Two plain-integer counters:
 
 - ``LAUNCHES``: kernel launches (one per :meth:`GsPlan.launch` whose
-  phase has nodes);
+  phase has nodes; a launch recorded into a CUDA graph counts once, when
+  it is recorded, and the graph's replays, which do not call the
+  wrapper, count nothing here);
 - ``PLAIN_CALLS_ON_CUDA``: calls of the plain PyTorch version
   (``smoothers._gauss_seidel_phase_torch``) with CUDA tensors, which only
   comparisons with the kernel make.

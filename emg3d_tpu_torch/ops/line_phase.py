@@ -28,7 +28,9 @@ every task (see ``_operands`` for the layouts).  Two plain-integer
 counters:
 
 - ``LAUNCHES``: kernel launches (one per :meth:`LinePlan.launch` whose
-  phase has lines);
+  phase has lines; a launch recorded into a CUDA graph counts once, when
+  it is recorded, and the graph's replays, which do not call the
+  wrapper, count nothing here);
 - ``PLAIN_CALLS_ON_CUDA``: calls of the plain PyTorch version
   (``smoothers._line_relax_phase_torch``) with CUDA tensors, which only
   comparisons with the kernel make.

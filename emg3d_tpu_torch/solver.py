@@ -10,9 +10,12 @@ semicoarsening cycling over [1, 2, 3] and line relaxation over [4, 5, 6]).
   ``device`` as one :class:`_Level` per grid; the line-relaxation
   direction only changes the per-level smoother flags
   (:class:`_Hierarchies`).
-- The cycle is host-driven and eager: smoothing phases (the ``gs_phase``
-  and ``line_phase`` kernels on CUDA), residual + restriction, recursion,
-  prolongation.
+- The cycle is host-driven: smoothing phases (the ``gs_phase`` and
+  ``line_phase`` kernels on CUDA), residual + restriction, recursion,
+  prolongation.  On the card each cycle, its accumulate and the next
+  residual norm run as one replay of a captured CUDA graph
+  (``EMG3D_TPU_CYCLE_JIT``, see :func:`_use_cycle_graph`); elsewhere, or
+  with the switch off, operation by operation.
 - Multigrid accumulates its iterate as an unevaluated sum ``e_hi + e_lo``
   with an error-free two-sum, and the residual that decides convergence
   is evaluated in native complex128/float64, so a complex64 solve reaches
@@ -21,7 +24,10 @@ semicoarsening cycling over [1, 2, 3] and line relaxation over [4, 5, 6]).
   multigrid preconditioner runs in the working precision.
 """
 
+import collections
 import itertools
+import os
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -455,16 +461,15 @@ def _residual_norm_split(e_hi, e_lo, s, lvl, per_task=False):
     precision (``_residual_norm_split_f64_jit`` of the JAX package; no
     double-single arithmetic is needed on hardware with FP64), a shared
     eta scaled by ``scale64``.  Returns the residual in working precision
-    and the norm as a float, or with ``per_task`` the norms of a task
-    axis as a (B,) device tensor.
+    and the norm as a 0-d device tensor, or with ``per_task`` the norms
+    of a task axis as a (B,) device tensor.
     """
     ops64 = _scaled(lvl.ops64, lvl.scale64)
     up = ops64[0].dtype
     e = tuple(h.to(up) + l.to(up) for h, l in zip(e_hi, e_lo))
     r = operator.residual(*(c.to(up) for c in s), *e, *ops64)
     l2 = operator.residual_norm(*r, per_task=per_task)
-    return tuple(c.to(e_hi[0].dtype) for c in r), (l2 if per_task
-                                                   else float(l2))
+    return tuple(c.to(e_hi[0].dtype) for c in r), l2
 
 
 def _accumulate_(e_hi, e_lo, de):
@@ -593,6 +598,302 @@ def _after_first_cycle(var):
 
 
 # ==========================================================================
+# Whole-cycle steps (EMG3D_TPU_CYCLE_JIT): one CUDA graph per cycle.
+#
+# The host-driven cycle launches thousands of small kernels per multigrid
+# cycle, and the card idles while the host launches them.  A step runs one
+# cycle, its split-precision accumulate and the next residual norm as one
+# replay of a captured CUDA graph, with one host sync per cycle (the
+# norm): the counterpart of the JAX package's whole-cycle executables
+# (``_whole_step_factory``, ``_whole_corr_factory``).  As there, the
+# level tensors are not part of the key: a step reads static copies of
+# them (``_LevelStore``) into which each solve's hierarchy is copied, so
+# every solve on a grid of one configuration replays the same graphs.
+# ==========================================================================
+
+# Captures and replays of whole-cycle steps since the last reset_counts().
+# On the CPU, where nothing is captured, they count what the card would
+# capture and replay.
+CYCLE_CAPTURES = 0
+CYCLE_REPLAYS = 0
+
+# Bound of the step cache: the steps of four grid configurations of the
+# default solver (three (sc_dir, lr_dir) pairs, each a step and a
+# correction step).  The least recently used step is dropped beyond it.
+_MAX_STEPS = 24
+_STEPS = collections.OrderedDict()
+
+# The states and level stores the cached steps share, while any step
+# holds them.
+_STATES = weakref.WeakValueDictionary()
+_STORES = weakref.WeakValueDictionary()
+
+# One memory pool for every capture.  Sharing it is safe here: replays
+# run one at a time on one stream, each graph's allocations are
+# temporaries of its own replay, and every output of a step lives in
+# buffers the step holds (allocated outside any capture).
+_POOL = None
+
+
+def reset_counts():
+    """Set ``CYCLE_CAPTURES`` and ``CYCLE_REPLAYS`` to 0."""
+    global CYCLE_CAPTURES, CYCLE_REPLAYS
+    CYCLE_CAPTURES = 0
+    CYCLE_REPLAYS = 0
+
+
+def _use_cycle_graph(var):
+    """Whether a solve runs its cycles as whole-cycle steps.
+
+    Reads ``EMG3D_TPU_CYCLE_JIT`` (``1`` | ``0`` | ``auto``, default
+    ``auto``) on every solve, as ``_use_cycle_jit`` of the JAX package
+    does: ``1`` on any device (on the CPU a step runs its body
+    uncaptured), ``auto`` on CUDA, ``0`` never.  Never at ``verb > 3``:
+    the cycle-QC trace (``var.level_all``) is written by the
+    per-operation cycle only (the JAX package turns ``auto`` off there
+    for the same reason).
+    """
+    mode = os.environ.get('EMG3D_TPU_CYCLE_JIT', 'auto')
+    if var.verb > 3:
+        return False
+    if mode == '1':
+        return True
+    return mode == 'auto' and var.device.type == 'cuda'
+
+
+class _CycleCfg:
+    """The static slice of MGParameters a cycle step reads."""
+
+    __slots__ = ('cycle', 'cycmax', 'nu_init', 'nu_pre', 'nu_coarse',
+                 'nu_post', 'level_all')
+
+    def __init__(self, cycle, cycmax, nu_init, nu_pre, nu_coarse,
+                 nu_post):
+        self.cycle = cycle
+        self.cycmax = cycmax
+        self.nu_init = nu_init
+        self.nu_pre = nu_pre
+        self.nu_coarse = nu_coarse
+        self.nu_post = nu_post
+        self.level_all = []         # level-trace sink
+
+
+def _cycle_cfg_key(var):
+    return (var.cycle, var.cycmax, var.nu_init, var.nu_pre,
+            var.nu_coarse, var.nu_post)
+
+
+def _leaves(x):
+    """The tensors of a nest of tuples of tensors and Nones, in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif x is not None:
+        for y in x:
+            yield from _leaves(y)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return None if x is None else tuple(_clone(y) for y in x)
+
+
+def _own_parts(lvl):
+    """The tensors of a level, ``ops64`` left out where it is ``ops``."""
+    return (lvl.ops, lvl.rw, lvl.pm,
+            None if lvl.ops64 is lvl.ops else lvl.ops64)
+
+
+class _LevelStore:
+    """Static copies of the level tensors of one hierarchy layout.
+
+    The steps captured on the layout read these copies.  ``load`` copies
+    a solve's hierarchy in, once per hierarchy: a new ``Model`` on the
+    same grid (every inversion evaluation, every survey task) then
+    captures nothing.  The hierarchy is copied rather than built into
+    the store, so that ``_Hierarchies`` and the per-operation cycle stay
+    as they are and two hierarchies of one layout (two solves, or a solve
+    and the batch engine) never share tensors.
+    """
+
+    def __init__(self, levels):
+        self.levels = []
+        for lvl in levels:
+            new = _Level(_clone(lvl.ops), _clone(lvl.rw), _clone(lvl.pm))
+            if lvl.ops64 is not None:
+                new.ops64 = (new.ops if lvl.ops64 is lvl.ops
+                             else _clone(lvl.ops64))
+            self.levels.append(new)
+        self._src = weakref.ref(levels[0])
+
+    def load(self, levels):
+        if self._src() is levels[0]:
+            return
+        for dst, src in zip(self.levels, levels):
+            for d, t in zip(_leaves(_own_parts(dst)),
+                            _leaves(_own_parts(src))):
+                d.copy_(t)
+        self._src = weakref.ref(levels[0])
+
+
+class _CycleState:
+    """The fine-grid tensors the steps of one grid read and write in place:
+    the split iterate ``e_hi``, ``e_lo`` and the residual ``r`` in working
+    precision, the source ``s`` and the norm ``l2`` in the precision of
+    the level-0 operator."""
+
+    def __init__(self, r, hdt):
+        self.e_hi = tuple(torch.zeros_like(c) for c in r)
+        self.e_lo = tuple(torch.zeros_like(c) for c in r)
+        self.r = tuple(torch.zeros_like(c) for c in r)
+        self.s = tuple(torch.zeros_like(c, dtype=hdt) for c in r)
+        self.l2 = torch.zeros((), dtype=torch.float64, device=r[0].device)
+
+    def start(self, s, r, e_hi=None):
+        """Set the source, the residual and the iterate (zero if None)."""
+        for dst, src in zip((self.s, self.r), (s, r)):
+            for d, t in zip(dst, src):
+                d.copy_(t)
+        for d in self.e_lo:
+            d.zero_()
+        for i, d in enumerate(self.e_hi):
+            if e_hi is None:
+                d.zero_()
+            else:
+                d.copy_(e_hi[i])
+
+
+def _cycle_state(r, ops64):
+    """The state of the fine grid of ``r`` (the working precision) and of
+    the level-0 operator ``ops64``, shared by every step on that grid."""
+    key = (tuple(c.shape for c in r), r[0].dtype, ops64[0].dtype,
+           r[0].device)
+    state = _STATES.get(key)
+    if state is None:
+        state = _STATES[key] = _CycleState(r, ops64[0].dtype)
+    return state
+
+
+def _level_store(meta, levels):
+    key = (tuple((shape, coarsen) for shape, _, coarsen in meta),
+           levels[0].ops[0].dtype, levels[0].ops[0].device)
+    store = _STORES.get(key)
+    if store is None:
+        store = _STORES[key] = _LevelStore(levels)
+    store.load(levels)
+    return store
+
+
+class _CycleStep:
+    """One multigrid cycle on ``state``: the correction from the residual
+    ``state.r``, its split accumulate into ``state.e_hi``/``e_lo`` and,
+    with ``store2``, the next residual and its norm with ``store2``'s
+    level-0 operator, in place in ``state``.
+
+    The first use runs the body operation by operation, which computes
+    the cycle and loads every kernel it launches, and then captures the
+    body into a CUDA graph; every later use replays the graph.  A capture
+    that meets a host sync or a pageable copy raises, and nothing falls
+    back.  On the CPU nothing is captured: every use runs the body.
+
+    The kernels' launch counters count what passes through their
+    wrappers: the eager first use and the launches recorded at capture.
+    A replay runs the recorded kernels without the wrappers and counts
+    in ``CYCLE_REPLAYS`` only.
+    """
+
+    def __init__(self, meta, cfg_key, first, state, store, store2=None):
+        self.meta = meta
+        self.cfg = _CycleCfg(*cfg_key)
+        self.first = first
+        self.state = state
+        self.store = store
+        self.store2 = store2
+        self.device = state.r[0].device
+        self.graph = None
+        self.captured = False
+
+    def _body(self):
+        st = self.state
+        self.cfg.level_all = []
+        de = _cycle_correction(self.meta, self.store.levels, st.r, self.cfg,
+                               self.first)
+        _accumulate_(st.e_hi, st.e_lo, de)
+        if self.store2 is not None:
+            r, l2 = _residual_norm_split(st.e_hi, st.e_lo, st.s,
+                                         self.store2.levels[0])
+            for d, t in zip(st.r, r):
+                d.copy_(t)
+            st.l2.copy_(l2)
+
+    def _capture(self):
+        global CYCLE_CAPTURES, _POOL
+        if self.device.type == 'cuda':
+            if _POOL is None:
+                _POOL = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=_POOL):
+                self._body()
+            self.graph = graph
+        self.captured = True
+        CYCLE_CAPTURES += 1
+
+    def __call__(self):
+        global CYCLE_REPLAYS
+        if not self.captured:
+            self._body()
+            self._capture()
+            return
+        if self.graph is None:
+            self._body()
+        else:
+            with torch.cuda.device(self.device):
+                self.graph.replay()
+        CYCLE_REPLAYS += 1
+
+
+def _cached_step(key, make):
+    """The step of ``key`` from the cache (made by ``make()`` if absent)."""
+    step = _STEPS.get(key)
+    if step is None:
+        step = _STEPS[key] = make()
+        while len(_STEPS) > _MAX_STEPS:
+            _STEPS.popitem(last=False)
+    else:
+        _STEPS.move_to_end(key)
+    return step
+
+
+def _whole_step(meta, meta2, cfg_key, first, state, levels, levels2):
+    """Run one cycle, its accumulate and the next residual as a step;
+    returns the norm (the one host sync of the cycle).
+
+    ``meta``/``levels`` are the current hierarchy, ``meta2``/``levels2``
+    the next one (they differ under semicoarsening or line-relaxation
+    cycling); ``first`` is whether the cycle's initial smoothing runs
+    (the first cycle with ``nu_init > 0``).  The step is cached on
+    ``(meta, meta2, cfg_key, first)``, the working dtype and the device.
+    """
+    store, store2 = _level_store(meta, levels), _level_store(meta2, levels2)
+    key = ('step', meta, meta2, cfg_key, first, state.r[0].dtype,
+           state.r[0].device)
+    _cached_step(key, lambda: _CycleStep(meta, cfg_key, first, state,
+                                         store, store2))()
+    return float(state.l2)
+
+
+def _whole_corr(meta, cfg_key, first, state, levels):
+    """Run one cycle and its accumulate as a step, without the next
+    residual: the last cycle of the preconditioner."""
+    store = _level_store(meta, levels)
+    key = ('corr', meta, cfg_key, first, state.r[0].dtype,
+           state.r[0].device)
+    _cached_step(key, lambda: _CycleStep(meta, cfg_key, first, state,
+                                         store))()
+
+
+# ==========================================================================
 # Host-driven multigrid and Krylov solvers.
 # ==========================================================================
 
@@ -616,8 +917,16 @@ def multigrid(model, sfield, efield, var):
     e_hi = _field_to_dev(efield, var.device, wdt)
     e_lo = tuple(torch.zeros_like(c) for c in e_hi)
 
-    r, l2_last = _residual_norm_split(e_hi, e_lo, s, levels[0])
+    r, l2 = _residual_norm_split(e_hi, e_lo, s, levels[0])
+    l2_last = float(l2)
     l2_stag = np.ones(var.maxcycle) * l2_last
+
+    graph = _use_cycle_graph(var)
+    if graph:
+        state = _cycle_state(r, levels[0].ops64)
+        state.start(s, r, e_hi)
+        e_hi, e_lo = state.e_hi, state.e_lo
+        cfg_key = _cycle_cfg_key(var)
 
     it = 0
     first = True
@@ -629,10 +938,17 @@ def multigrid(model, sfield, efield, var):
         # to the NEXT residual evaluation, reference solver.py:639-642).
         sc_next, lr_next = _next_dirs(var)
 
-        de = _cycle_correction(meta, levels, r, var, first)
-        _accumulate_(e_hi, e_lo, de)
-        meta, levels = hier.get(sc_next, lr_next)
-        r, l2_last = _residual_norm_split(e_hi, e_lo, s, levels[0])
+        meta2, levels2 = hier.get(sc_next, lr_next)
+        if graph:
+            l2_last = _whole_step(meta, meta2, cfg_key,
+                                  first and var.nu_init > 0, state, levels,
+                                  levels2)
+        else:
+            de = _cycle_correction(meta, levels, r, var, first)
+            _accumulate_(e_hi, e_lo, de)
+            r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
+            l2_last = float(l2)
+        meta, levels = meta2, levels2
         var.sc_dir, var.lr_dir = sc_next, lr_next
         _after_first_cycle(var)
         first = False
@@ -711,6 +1027,9 @@ def krylov(model, sfield, efield, var):
     def amatvec(e):
         return operator.amat_x(*e, *ops64)
 
+    graph = _use_cycle_graph(var)
+    cfg_key = _cycle_cfg_key(var)
+
     def mg_precond(s):
         """Apply up-to-maxcycle MG cycles to s, starting from zero.
 
@@ -719,8 +1038,13 @@ def krylov(model, sfield, efield, var):
         outer Krylov solver via _ConvergenceError.
         """
         r = tuple(c.to(wdt) for c in s)
-        e_hi = tuple(torch.zeros_like(c) for c in r)
-        e_lo = tuple(torch.zeros_like(c) for c in r)
+        if graph:
+            state = _cycle_state(r, ops64)
+            state.start(s, r)
+            e_hi, e_lo = state.e_hi, state.e_lo
+        else:
+            e_hi = tuple(torch.zeros_like(c) for c in r)
+            e_lo = tuple(torch.zeros_like(c) for c in r)
         l2_stag = np.ones(var.maxcycle) * np.inf
         it = 0
         first = True
@@ -729,12 +1053,21 @@ def krylov(model, sfield, efield, var):
             sc_next, lr_next = _next_dirs(var)
             meta, levels = hier.get(var.sc_dir, var.lr_dir)
             last = it + 1 == var.maxit
+            first_eff = first and var.nu_init > 0
 
-            de = _cycle_correction(meta, levels, r, var, first)
-            _accumulate_(e_hi, e_lo, de)
-            if not last:
-                _, levels2 = hier.get(sc_next, lr_next)
-                r, l2_last = _residual_norm_split(e_hi, e_lo, s, levels2[0])
+            if graph and last:
+                _whole_corr(meta, cfg_key, first_eff, state, levels)
+            elif graph:
+                meta2, levels2 = hier.get(sc_next, lr_next)
+                l2_last = _whole_step(meta, meta2, cfg_key, first_eff,
+                                      state, levels, levels2)
+            else:
+                de = _cycle_correction(meta, levels, r, var, first)
+                _accumulate_(e_hi, e_lo, de)
+                if not last:
+                    _, levels2 = hier.get(sc_next, lr_next)
+                    r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
+                    l2_last = float(l2)
             var.sc_dir, var.lr_dir = sc_next, lr_next
             _after_first_cycle(var)
             first = False

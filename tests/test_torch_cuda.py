@@ -431,3 +431,111 @@ def test_solve_batch_card_equals_cpu(cuda):
     for a, b in zip(card, cpu):
         assert (np.linalg.norm(a.field - b.field)
                 <= 1e-10 * np.linalg.norm(b.field))
+
+
+# --------------------------------------------------------------------------
+# The whole-cycle step: every cycle as a replay of a captured CUDA graph.
+# --------------------------------------------------------------------------
+
+def _counts():
+    return (gs_phase.LAUNCHES, gs_phase.PLAIN_CALLS_ON_CUDA,
+            line_phase.LAUNCHES, line_phase.PLAIN_CALLS_ON_CUDA)
+
+
+def _run_on_card(prof):
+    """(gs_phase, line_phase) kernels a ``torch.profiler`` trace saw run
+    on the card, launched one by one or replayed in a CUDA graph."""
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return tuple(sum(symbol in n for n in names)
+                 for symbol in ('gs_phase_kernel', 'line_phase_kernel'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['baseline', 'triaxial'])
+def test_graph_equals_per_operation(cuda, case, monkeypatch):
+    """32^3, plain F-cycles and the default solver: the graph solves equal
+    the per-operation solve bit for bit, with the same iterations; the
+    second graph solve captures nothing and launches nothing through the
+    wrappers; the kernels each graph solve runs on the card (profiler:
+    eager first uses and replays, a capture runs nothing) equal the
+    per-operation solve's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emg3d_tpu_torch import northstar, solve, solver
+
+    make = getattr(northstar, f'{case}_problem')
+    runs = []
+    for mode in ('0', 'auto', 'auto'):
+        monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', mode)
+        gs_phase.reset_counts()
+        line_phase.reset_counts()
+        solver.reset_counts()
+        problem = make(32)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            efield, info = solve(*problem, tol=1e-6, return_info=True,
+                                 **northstar.SOLVE_OPTIONS[case])
+            torch.cuda.synchronize()
+        runs.append((efield.field, info, _counts(), _run_on_card(prof),
+                     solver.CYCLE_CAPTURES, solver.CYCLE_REPLAYS))
+    (ref, rinfo, rcounts, rcard, rcap, rrep) = runs[0]
+    assert rinfo['exit'] == 0 and rcap == rrep == 0
+    assert rcard == rcounts[::2] and sum(rcard) > 0
+    for field, info, counts, card, _, replays in runs[1:]:
+        for key in ('it_ssl', 'it_mg', 'exit_message'):
+            assert info[key] == rinfo[key], key
+        assert np.array_equal(field, ref)
+        assert counts[1] == counts[3] == 0
+        assert card == rcounts[::2]
+        assert replays > 0
+    assert runs[1][4] > 0 and runs[2][4] == 0
+    assert runs[2][2] == (0, 0, 0, 0)
+
+
+def _fresh_process(code):
+    """Run ``code`` in a new interpreter from the repo root; its stdout."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, '-c', code], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout
+
+
+@pytest.mark.cuda
+def test_graph_solve_in_a_fresh_process(cuda):
+    """A process whose first kernel launches are its first solve captures
+    and converges (the kernels load lazily before their capture)."""
+    out = _fresh_process(
+        "from emg3d_tpu_torch import northstar, solve, solver\n"
+        "ef, info = solve(*northstar.triaxial_problem(32), tol=1e-6,\n"
+        "                 return_info=True)\n"
+        "print(info['exit_message'], solver.CYCLE_CAPTURES,\n"
+        "      solver.CYCLE_REPLAYS)\n")
+    message, captures, replays = out.split()[-3:]
+    assert message == 'CONVERGED'
+    assert int(captures) > 0 and int(replays) > 0
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda):
+    """A host sync inside the cycle makes its capture raise, and nothing
+    falls back to the per-operation cycle (in a process of its own)."""
+    out = _fresh_process(
+        "import torch\n"
+        "from emg3d_tpu_torch import northstar, solve, solver\n"
+        "accumulate = solver._accumulate_\n"
+        "def synced(e_hi, e_lo, de):\n"
+        "    float(torch.linalg.vector_norm(de[0]))\n"
+        "    return accumulate(e_hi, e_lo, de)\n"
+        "solver._accumulate_ = synced\n"
+        "try:\n"
+        "    solve(*northstar.baseline_problem(32), plain=True, tol=1e-6)\n"
+        "except RuntimeError as err:\n"
+        "    print('raised', solver.CYCLE_CAPTURES, solver.CYCLE_REPLAYS)\n"
+        "else:\n"
+        "    print('solved')\n")
+    assert out.split()[-3:] == ['raised', '0', '0']

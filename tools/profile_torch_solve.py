@@ -1,11 +1,20 @@
 """Where the time of one solve of the PyTorch port goes, on one CUDA card.
 
-    python3 -m tools.profile_torch_solve [triaxial|baseline|marine|salt|batch] [n]
+    python3 -m tools.profile_torch_solve
+        [triaxial|baseline|marine|salt|batch] [n] [--cycle-jit {auto,0,1}]
 
 Solves one north-star problem through ``emg3d_tpu_torch.solve`` (after a
 warm-up solve at 32 cells a side) under ``torch.profiler`` and prints:
 the wall time, the device time of every kernel and copy summed by name
-(count, ms), the device busy time and the idle share 1 - busy / wall.
+(count, ms), the device busy time and the idle share 1 - busy / wall,
+the host-to-device and device-to-host copies, and the CUDA graph launches
+(``cudaGraphLaunch`` calls) with the whole-cycle steps' captures and
+replays.  ``--cycle-jit`` sets ``EMG3D_TPU_CYCLE_JIT`` for the whole run
+(default ``auto``: every cycle a replay of a captured CUDA graph; ``0``:
+the per-operation cycle).  The warm-up solve captures the steps of its
+own grid only, so the problem is solved once more before it is profiled
+(the profile shows replays, not captures), and once under ``cProfile``
+(the host functions with the most time of their own).
 
 - ``triaxial``: n^3 fullspace, rho 1/2/5 Ohm m, the default solver;
 - ``baseline``: n^3 fullspace, 1 Ohm m, plain F-cycles;
@@ -26,11 +35,12 @@ The problems and their options are those of ``emg3d_tpu_torch.northstar``.
 Run from the repo root; imports nothing of JAX; needs a card.
 """
 
+import argparse
 import collections
 import cProfile
+import os
 import pstats
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -112,19 +122,27 @@ def batch_task(n):
 
 
 def main():
-    case = sys.argv[1] if len(sys.argv) > 1 else "triaxial"
-    n = int(sys.argv[2]) if len(sys.argv) > 2 else 128
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("case", nargs="?", default="triaxial",
+                        choices=["triaxial", "baseline", "marine", "salt",
+                                 "batch"])
+    parser.add_argument("n", nargs="?", type=int, default=128)
+    parser.add_argument("--cycle-jit", default="auto",
+                        choices=["auto", "0", "1"])
+    args = parser.parse_args()
+    case, n = args.case, args.n
+    os.environ["EMG3D_TPU_CYCLE_JIT"] = args.cycle_jit
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from emg3d_tpu_torch import solve
+    from emg3d_tpu_torch import solve, solver
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {smi}; EMG3D_TPU_CYCLE_JIT={args.cycle_jit}")
     if case == "salt":
         solve(*northstar.triaxial_problem(32), tol=1e-6)    # warm-up
         task, label = salt_task(n)
@@ -138,7 +156,11 @@ def main():
         label = f"{case} {model.shape}"
 
         def task():
-            return solve(model, sfield, tol=1e-6, return_info=True, **kw)[1]
+            return solver.solve(model, sfield, tol=1e-6, return_info=True,
+                                **kw)[1]
+
+        task()                      # captures the steps of this grid
+        host_stage(f"{label}, one warm solve", 1, task)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -154,11 +176,20 @@ def main():
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in by_name.values())
+    copies = {kind: [sum(v[i] for k, v in by_name.items() if kind in k)
+                     for i in (0, 1)] for kind in ("HtoD", "DtoH")}
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.key == "cudaGraphLaunch")
     print(f"{label}: wall {wall!r} s under the profiler, "
           f"it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, rel_error "
           f"{info['rel_error']!r}, {info['exit_message']}")
     print(f"device busy {busy!r} ms in {sum(v[0] for v in by_name.values())}"
-          f" kernels and copies; idle share {1 - busy / (1e3 * wall)!r}")
+          f" kernels and copies; idle share {1 - busy / (1e3 * wall)!r}; "
+          f"H2D {copies['HtoD'][1]!r} ms in {copies['HtoD'][0]}, D2H "
+          f"{copies['DtoH'][1]!r} ms in {copies['DtoH'][0]}; "
+          f"{graph_launches} CUDA graph launches; whole-cycle steps: "
+          f"{solver.CYCLE_CAPTURES} captures, {solver.CYCLE_REPLAYS} "
+          f"replays in this process")
     for name, (count, ms) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:15]:
         print(f"  {ms:10.3f} ms  {count:7d}  {name[:100]}")
