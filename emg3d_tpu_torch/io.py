@@ -69,7 +69,18 @@ def load(fname, **kwargs):
     (reference io.py:133-235).
     """
     verb = kwargs.pop("verb", 0)
+    data, info = _read(fname)
+    data = _dict_deserialize(data)
+    if verb > 0:
+        print(info)
+    elif verb < 0:
+        return data, info
+    return data
 
+
+def _read(fname):
+    """The content of a file written by :func:`save`, with no class
+    re-instantiated, and the info string on where it came from."""
     ext = os.path.splitext(fname)[1].lower()
     if ext == ".h5":
         try:
@@ -90,16 +101,9 @@ def load(fname, **kwargs):
     version = data.pop("_version", "unknown version")
     date = data.pop("_date", "unknown date")
     fformat = data.pop("_format", "unknown format")
-
-    data = _dict_deserialize(data)
-
     info = (f"Data loaded from «{fname}»\n[{version} "
             f"(format {fformat}) on {date}]")
-    if verb > 0:
-        print(info)
-    elif verb < 0:
-        return data, info
-    return data
+    return data, info
 
 
 def convert(data_or_file, classname, **kwargs):

@@ -11,6 +11,9 @@ solve uses in ``SOLVE_OPTIONS``:
 - ``triaxial_problem``: north-star configuration 3
   (``tools/bench_northstar.py:89-98``): as BASELINE with rho 1/2/5 Ohm m;
   the solver's default options.
+- ``laplace_problem``: the triaxial model with the source in the Laplace
+  domain (``frequency=-1``: s = 1/s, real fields, so real working
+  dtypes); the solver's default options.
 - ``marine_problem``: north-star configuration 2
   (``tools/bench_northstar.py:53-86``): layered marine model, 100 m cells
   laterally, 25 m through the water column and stretched by 1.05 below
@@ -22,6 +25,11 @@ solve uses in ``SOLVE_OPTIONS``:
 model, with misfit and adjoint-state gradient, every solve with the
 solver's default options.  It returns ``(survey, model, simulation
 keywords)``.
+
+``time_domain`` is north-star configuration 5 (``tools/bench_time.py:44-99``,
+uncut): the transient switch-off response of a 1 Ohm m fullspace from
+one plain F-cycle solve per frequency that ``Fourier`` needs, all on one
+grid.
 """
 
 import contextlib
@@ -31,29 +39,31 @@ import numpy as np
 
 from emg3d_tpu_torch import solver
 from emg3d_tpu_torch.electrodes import RxElectricPoint, TxElectricPoint
-from emg3d_tpu_torch.fields import get_source_field
+from emg3d_tpu_torch.fields import get_receiver, get_source_field
 from emg3d_tpu_torch.meshes import TensorMesh
 from emg3d_tpu_torch.models import Model
 from emg3d_tpu_torch.surveys import Survey
+from emg3d_tpu_torch.time import Fourier
 
-__all__ = ["baseline_problem", "triaxial_problem", "marine_problem",
-           "salt_mask", "salt_model", "salt_survey", "salt_box",
-           "timed_solves", "SOLVE_OPTIONS"]
+__all__ = ["baseline_problem", "triaxial_problem", "laplace_problem",
+           "marine_problem", "salt_mask", "salt_model", "salt_survey",
+           "salt_box", "time_domain", "timed_solves", "SOLVE_OPTIONS"]
 
 SOLVE_OPTIONS = {
     "baseline": dict(plain=True, cycle='F'),
     "triaxial": {},
+    "laplace": {},
     "marine": dict(sslsolver=False, semicoarsening=True,
                    linerelaxation=True, cycle='F', maxit=90),
 }
 
 
-def _fullspace(n, **properties):
+def _fullspace(n, frequency=1.0, **properties):
     h = np.full(n, 50.0)
     grid = TensorMesh([h, h, h], origin=(-n * 25.0,) * 3)
     model = Model(grid, **properties)
     sfield = get_source_field(grid, source=(0., 0., 0., 0., 0.),
-                              frequency=1.0)
+                              frequency=frequency)
     return model, sfield
 
 
@@ -63,6 +73,11 @@ def baseline_problem(n):
 
 def triaxial_problem(n):
     return _fullspace(n, property_x=1.0, property_y=2.0, property_z=5.0)
+
+
+def laplace_problem(n):
+    return _fullspace(n, frequency=-1.0, property_x=1.0, property_y=2.0,
+                      property_z=5.0)
 
 
 def marine_problem(n):
@@ -157,6 +172,48 @@ def salt_box(grid):
              np.abs(grid.cell_centers_y) < 500.0,
              np.abs(grid.cell_centers_z + 2600.0) < 300.0)] = 1.0
     return v
+
+
+def time_domain(n=64, times=None, fmin=1e-3, fmax=1e2, offset=900.0,
+                device=None, **solve_opts):
+    """North-star configuration 5: the transient switch-off response at
+    an inline ``offset`` of an x-directed dipole at the origin of a 1 Ohm m
+    fullspace of ``n``^3 cells of 100 m.
+
+    ``Fourier(time=times, fmin, fmax, signal=-1)`` (``times`` default
+    ``np.logspace(-2, 1, 13)`` s) gives the frequencies to compute; each
+    is one ``solve_source`` with plain F-cycles to tol 1e-6 (``maxit``
+    50) on ``device``, all on one grid; ``solve_opts`` are passed on
+    (and override these).
+    The receiver's responses go through ``Fourier.freq2time``.  Returns
+    the transient at ``times`` and, per frequency, a dict of the
+    frequency, the response, the solve's ``it_mg``, ``exit_message`` and
+    ``rel_error``, and its wall seconds (the field back on the host
+    included).
+    """
+    if times is None:
+        times = np.logspace(-2, 1, 13)
+    fourier = Fourier(time=times, fmin=fmin, fmax=fmax, signal=-1, verb=0)
+    h = np.full(n, 100.0)
+    grid = TensorMesh([h, h, h], origin=(-n * 50.0,) * 3)
+    model = Model(grid, property_x=1.0)
+    opts = {'plain': True, 'cycle': 'F', 'tol': 1e-6, 'maxit': 50,
+            'verb': -1, **solve_opts}
+    per_freq = []
+    for f in fourier.freq_compute:
+        t0 = time.perf_counter()
+        efield, info = solver.solve_source(
+            model, (0., 0., 0., 0., 0.), f, device=device,
+            return_info=True, **opts)
+        response = complex(get_receiver(efield, (offset, 0., 0., 0., 0.)))
+        per_freq.append({
+            'frequency': float(f), 'response': response,
+            'it_mg': info['it_mg'], 'exit_message': info['exit_message'],
+            'rel_error': info['rel_error'],
+            'seconds': time.perf_counter() - t0})
+    responses = np.array([r['response'] for r in per_freq])
+    transient = np.asarray(fourier.freq2time(responses, offset)).ravel()
+    return transient, per_freq
 
 
 @contextlib.contextmanager

@@ -539,3 +539,52 @@ def test_failed_capture_raises(cuda):
         "else:\n"
         "    print('solved')\n")
     assert out.split()[-3:] == ['raised', '0', '0']
+
+
+@pytest.mark.cuda
+def test_cli_card_equals_cpu(cuda, tmp_path):
+    """``python -m emg3d_tpu_torch -g`` with ``device = cuda`` against the
+    same run with ``device = cpu``: a 16^3 triaxial simulation with
+    observed data, stored with ``dtype`` complex128 and resumed with
+    ``--load``, so that the config's device places it.  Data, misfit and
+    gradient to 1e-10 of the largest entry."""
+    import pathlib
+    import subprocess
+    import sys
+
+    import emg3d_tpu_torch as t3
+
+    h = np.ones(16) * 100.0
+    grid = t3.TensorMesh([h, h, h], origin=(-800.,) * 3)
+    model = t3.Model(grid, property_x=1.0, property_y=2.0, property_z=3.0)
+    rng = np.random.default_rng(16)
+    survey = t3.Survey(
+        [t3.TxElectricDipole((0., 0., 0., 0., 0.))],
+        [t3.RxElectricPoint((x, 50., 0., 0., 0.)) for x in (250., 350.)],
+        [1.0], relative_error=0.05,
+        data=1e-8 * (rng.uniform(0.5, 1.5, (1, 2, 1))
+                     + 1j * rng.uniform(-0.3, 0.3, (1, 2, 1))))
+    sim = t3.Simulation(survey, model, gridding='same',
+                        receiver_interpolation='linear', device='cpu',
+                        solver_opts={'tol': 1e-6, 'dtype': 'complex128'})
+    sim.to_file(str(tmp_path / 'sim.npz'), verb=0)
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        cfg = tmp_path / f'{device}.cfg'
+        cfg.write_text(f"[simulation]\ndevice = {device}\n")
+        proc = subprocess.run(
+            [sys.executable, '-m', 'emg3d_tpu_torch', str(cfg), '-g',
+             '--path', str(tmp_path), '--load', 'sim.npz', '--save',
+             f'after_{device}.npz', '--output', f'out_{device}.npz'],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        after = t3.load(str(tmp_path / f'after_{device}.npz'))['simulation']
+        assert after.device == device
+        assert after.solver_opts['dtype'] == 'complex128'
+        outs[device] = t3.load(str(tmp_path / f'out_{device}.npz'))
+    for key in ('data', 'misfit', 'gradient'):
+        a, b = (np.asarray(outs[d][key]) for d in ('cuda', 'cpu'))
+        assert np.all(np.isfinite(a)) and np.abs(b).max() > 0, key
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), key
