@@ -13,7 +13,7 @@ Phases (any failure raises, and the script exits non-zero):
    its first solve: the 32^3 triaxial problem with the default solver,
    every cycle a whole-cycle CUDA graph (``EMG3D_TPU_CYCLE_JIT`` unset,
    so ``auto``); it must converge with captures and replays.
-3. The level shapes of the main paths (6 and 17 below), read from the
+3. The level shapes of the main paths (6 and 18 below), read from the
    hierarchies the solver builds for them: every level whose effective
    line-relaxation direction is 0 runs ``gs_phase``, every other level
    ``line_phase`` along the axes that direction names.  The Laplace
@@ -113,7 +113,21 @@ The batch engine (``emg3d_tpu_torch.parallel.batch``):
     1e-6 through both kernels, no plain call on CUDA; each lane beside
     the port's single solve.  Then 16^3 card against CPU in complex128:
     the same iterations and fields to 1e-10.
-13. The salt survey through both engines at 64^3 (8 sources, so 8
+13. ``[multi-device]``, on the mesh entries E: every distinct card of the
+    host if it has four or more, else ``['cuda:0'] * 4`` (one card drives
+    the same code path as several).  Counts set to 0 just before each
+    run and read just after.  The 128^3 triaxial default solve on a 2 x 2
+    grid mesh over E (``solve(..., mesh=)``), held against phase 6's
+    per-operation solve: the same exit message, ``it_ssl`` and ``it_mg``,
+    fields within 1e-5 relative in norm; its level plan and the bytes of
+    each piece of level 0 (about 26.6 % of the level each); the same for
+    the 128^3 BASELINE plain F-cycles (``gs_phase`` only).  Then phase
+    12's ``solve_batch`` (4 frequencies, 128^3) over 2 entries of E and
+    over 3 (the batch padded to 6 lanes), each lane held against phase
+    12's unsharded batch to 1e-12 with the same iterations; peak memory
+    per device.  Last ``parallel.dryrun_multichip(len(E), devices=E)``.
+    Both kernels launched on pieces, no plain call on CUDA.
+14. The salt survey through both engines at 64^3 (8 sources, so 8
     lanes), on one set of observed data: at tol 1e-9 in complex128 the
     synthetic data, misfit, gradient and ``jvec`` of ``parallel='batch'``
     equal those of ``parallel='task'`` to 1e-5; at tol 1e-6 the batch
@@ -129,7 +143,7 @@ The batch engine (``emg3d_tpu_torch.parallel.batch``):
 
 The inversion (``emg3d_tpu_torch.inversion``):
 
-14. ``inversion.native.minimize`` (L-BFGS-B, 3 iterations) of the salt
+15. ``inversion.native.minimize`` (L-BFGS-B, 3 iterations) of the salt
     survey at 64^3 with 4 sources through ``Simulation`` with no device,
     in ``LgResistivity``: observed data of the true model, start model
     with the salt 0.8 times as resistive.  Per evaluation the misfit, the
@@ -143,7 +157,7 @@ The inversion (``emg3d_tpu_torch.inversion``):
 The command line, north-star configuration 5, the Laplace domain and
 the examples:
 
-15. ``python3 -m emg3d_tpu_torch -g`` in a process of its own, with a
+16. ``python3 -m emg3d_tpu_torch -g`` in a process of its own, with a
     config that names no device (so the card): the salt survey of phase 8
     with its observed data and the model of weaker salt, written with
     ``io.save`` as ``.npz``.  Data, misfit and gradient of its output
@@ -152,7 +166,7 @@ the examples:
     solves (from its log file) and the launch counts of that process.
     Then ``--report`` and a dry run (``-d``) through ``python3 -m``, on a
     host without JAX or h5py.
-16. ``northstar.time_domain(64)``: 128 plain F-cycle solves of a 1 Ohm m
+17. ``northstar.time_domain(64)``: 128 plain F-cycle solves of a 1 Ohm m
     fullspace on one grid, from an empty step cache, counts set to 0
     just before and read just after; every solve below 1e-6 in the JAX
     recipe's cycles (give or take one), the transient at 900 m within
@@ -163,13 +177,13 @@ the examples:
     wall time, first and warm solves, captures and replays, peak memory.
     Then 16^3 on 4 frequencies, card against CPU in complex128 (same
     ``it_mg``, responses and transient to 1e-10).
-17. A Laplace-domain solve (``northstar.laplace_problem(128)``, a main
+18. A Laplace-domain solve (``northstar.laplace_problem(128)``, a main
     path: the triaxial model, source at frequency -1, real fields) with
     the default solver through ``drive_modes`` as in phase 6: float32 on the
     card, every kernel run of the profiled solve a float32
     instantiation, steps captured of its own; then 32^3 in float64, card
     against CPU to 1e-10.
-18. The three ``examples/torch_*.py`` as processes of their own on the
+19. The three ``examples/torch_*.py`` as processes of their own on the
     card, started together: each exits 0 and prints its result.
 
 The last three lines of standard output are the card's name and power
@@ -1051,9 +1065,10 @@ def phase_main_paths(problems):
         "marine_sclr_128x128x64": drive_modes(
             "marine sc+lr F-cycles", problems["marine"], ["line_phase"],
             tol=1e-6, **opts["marine"])}
-    paths = {k: v["per-operation"]["launches"] for k, v in paths.items()}
+    refs = {k: v["per-operation"] for k, v in paths.items()}
+    paths = {k: v["launches"] for k, v in refs.items()}
     check(paths["baseline_plain_128"]["line_phase"] == 0, paths)
-    return paths
+    return paths, refs
 
 
 def phase_fresh_graph_solve():
@@ -1388,7 +1403,180 @@ def phase_solve_batch(problems):
     check(i_card['exit_messages'] == i_cpu['exit_messages']
           == ['CONVERGED'] * len(small_src), "exit")
     check(err <= 1e-10, err)
-    return {k: c[0] for k, c in counts.items()}
+    return {k: c[0] for k, c in counts.items()}, (efields, info)
+
+
+def mesh_entries():
+    """E: every distinct card if the host has four or more, else
+    ``cuda:0`` four times."""
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def level_plan(problem, options, placement):
+    """The grid-sharded hierarchies of a solve of ``problem``: {sc_dir:
+    [(level shape, 'sharded' or 'replicated')]}, the bytes of each piece
+    of level 0 beside the bytes of the whole level, and {line axis: per
+    piece (operand bytes, field and source bytes)} of level 0's line
+    layouts."""
+    from emg3d_tpu_torch import models, solver
+    from emg3d_tpu_torch.parallel import domain
+
+    model, sfield = problem
+    opts = dict(sslsolver=True, semicoarsening=True, linerelaxation=True)
+    opts.update(options)
+    if opts.pop("plain", False):
+        opts = {k: (False if v is True else v) for k, v in opts.items()}
+    var = solver.MGParameters(verb=0, shape_cells=model.shape,
+                              device=placement.device, **opts)
+    var.placement = placement
+    hier = solver._Hierarchies(models.VolumeModel(model, sfield), var)
+    plan = {}
+    for sc in var.raw_sc_cycle:
+        meta, levels = hier.get(sc, var.raw_lr_cycle[0])
+        plan[int(sc)] = [(m[0], "sharded" if lvl.sharded else "replicated")
+                         for m, lvl in zip(meta, levels)]
+    lvl0 = levels[0]
+    cdt, rdt = hier.dtypes
+    whole = (int(np.prod(model.shape))
+             * (3 * cdt.itemsize + rdt.itemsize)
+             + sum(model.shape) * rdt.itemsize)
+    # What the y- and z-lines of level 0 hold per piece on their line
+    # layout: the level's operands there (kept) and the working copies of
+    # the field and the source (for one smoothing call).
+    lines = {}
+    for axis in (1, 2):
+        lay, blocks = lvl0._line(axis)
+        lines[axis] = [
+            (sum(t.numel() * t.element_size() for t in b.ops),
+             2 * cdt.itemsize * sum(int(np.prod(lay.ext_shape(k, kind)))
+                                    for kind in domain.EDGES))
+            for k, b in enumerate(blocks)]
+    return plan, lvl0.piece_bytes(), whole, lines
+
+
+def phase_multi_device(problems, main_refs, batch_ref):
+    """The ``[multi-device]`` phase: grid-sharded 128^3 default and
+    BASELINE solves over a 2 x 2 mesh of the entries E, held against the
+    per-operation solves of phase 6; the 128^3 x 4 frequencies batch over
+    2 and 3 entries, held against phase 12's unsharded batch; the dry
+    run.  Returns {path: {kernel: launches}}."""
+    from emg3d_tpu_torch import (get_source_field, northstar,
+                                 solve_batch_fields)
+    from emg3d_tpu_torch.parallel import (domain, dryrun_multichip,
+                                          make_grid_mesh, make_task_mesh)
+
+    E = mesh_entries()
+    cards = sorted({d.index for d in E})
+    log(f"[multi-device] entries E = {[str(d) for d in E]} "
+        f"({torch.cuda.device_count()} card(s) on the host); distinct "
+        f"cards driven: {len(cards)}")
+    opts = northstar.SOLVE_OPTIONS
+    paths = {}
+
+    def peaks():
+        return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+                for i in cards}
+
+    def reset_peaks():
+        for i in cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+
+    for key, case, kernels, label in (
+            ("grid_triaxial_default_128", "triaxial",
+             ["gs_phase", "line_phase"], "triaxial default solver"),
+            ("grid_baseline_plain_128", "baseline", ["gs_phase"],
+             "BASELINE plain F-cycles")):
+        placement = domain.GridPlacement(make_grid_mesh(devices=E))
+        plan, pieces, whole, lines = level_plan(problems[case],
+                                                opts[case], placement)
+        log(f"[multi-device] {label}: mesh {placement.mesh.shape} over E; "
+            f"level plan by sc_dir {plan}; level-0 piece bytes {pieces} "
+            f"of {whole} B for the whole level "
+            f"({[round(100 * p / whole, 2) for p in pieces]} %); on the "
+            f"line layouts of level 0, per piece (operands kept, field "
+            f"and source copied for a smoothing call) in B: y-lines "
+            f"{lines[1]}, z-lines {lines[2]}")
+        check(all(0.2 < p / whole < 0.3 for p in pieces), pieces)
+        reset_peaks()
+        run = drive(f"{label} [grid-sharded, 2 x 2 over E]",
+                    problems[case], kernels, tol=1e-6, mesh=placement,
+                    **opts[case])
+        for i in cards:
+            torch.cuda.synchronize(i)
+        ref = main_refs[{"triaxial": "triaxial_default_128",
+                         "baseline": "baseline_plain_128"}[case]]
+        diff = rel_err(torch.from_numpy(run["field"]),
+                       torch.from_numpy(ref["field"]))
+        log(f"[multi-device] {label}: {run['seconds']!r} s sharded against "
+            f"{ref['seconds']!r} s unsharded per operation; it_ssl "
+            f"{run['info']['it_ssl']} / {ref['info']['it_ssl']}, it_mg "
+            f"{run['info']['it_mg']} / {ref['info']['it_mg']}; fields' "
+            f"relative difference in norm {diff!r} (bit for bit "
+            f"{bool(np.array_equal(run['field'], ref['field']))}); launches "
+            f"{run['launches']} against {ref['launches']}; peak per card "
+            f"{peaks()}")
+        for k in ("exit_message", "it_ssl", "it_mg"):
+            check(run["info"][k] == ref["info"][k], (label, k))
+        check(diff <= 1e-5, (label, diff))
+        paths[f"multi_device_{key}"] = run["launches"]
+        del run
+
+    # The task axis over 2 and 3 entries of E.
+    freqs = [0.25, 0.5, 1.0, 2.0]
+    model, _ = problems["triaxial"]
+    sfields = [get_source_field(model.grid, (0., 0., 0., 0., 0.), f)
+               for f in freqs]
+    ref_fields, ref_info = batch_ref
+    for n in (2, 3):
+        mesh = make_task_mesh(devices=E[:n])
+        reset_peaks()
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        efields, info = solve_batch_fields(model, sfields, mesh=mesh,
+                                           tol=1e-6, **PRODUCTION)
+        for i in cards:
+            torch.cuda.synchronize(i)
+        dt = time.perf_counter() - t0
+        counts = kernel_counts()
+        diffs = [rel_err(torch.from_numpy(a.field),
+                         torch.from_numpy(b.field))
+                 for a, b in zip(efields, ref_fields)]
+        same = all(np.array_equal(a.field, b.field)
+                   for a, b in zip(efields, ref_fields))
+        log(f"[multi-device] solve_batch over {n} entries "
+            f"{[str(d) for d in E[:n]]} ({len(freqs)} tasks, "
+            f"{-len(freqs) % n} padding lane(s)): {dt!r} s, it_ssl "
+            f"{info['it_ssl']} / {ref_info['it_ssl']}, it_mg "
+            f"{info['it_mg']} / {ref_info['it_mg']}, "
+            f"{info['exit_messages']}; lanes' relative differences to the "
+            f"unsharded batch {diffs} (bit for bit {same}); launches "
+            f"{({k: c[0] for k, c in counts.items()})}, plain calls on "
+            f"cuda {({k: c[1] for k, c in counts.items()})}; peak per card "
+            f"{peaks()}")
+        check(info["exit_messages"] == ["CONVERGED"] * len(freqs), info)
+        check((info["it_ssl"], info["it_mg"])
+              == (ref_info["it_ssl"], ref_info["it_mg"]), "its")
+        check(max(diffs) <= 1e-12, diffs)
+        for name, (launches, plain) in counts.items():
+            check(launches > 0 and plain == 0, (n, name, launches, plain))
+        paths[f"multi_device_batch_{n}_entries"] = {
+            k: c[0] for k, c in counts.items()}
+        del efields
+
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    out = dryrun_multichip(len(E), devices=E)
+    counts = kernel_counts()
+    log(f"[multi-device] dryrun_multichip({len(E)}): {out}, "
+        f"{time.perf_counter() - t0:.1f} s, launches "
+        f"{({k: c[0] for k, c in counts.items()})}, plain calls on cuda "
+        f"{({k: c[1] for k, c in counts.items()})}")
+    check(all(c[1] == 0 for c in counts.values()), counts)
+    return paths
 
 
 def largest(a, b):
@@ -2154,14 +2342,17 @@ def main():
                                        line_shapes, real_line)
     batched = timed("batched kernels", phase_batched_kernels, gs_shapes,
                     line_shapes)
-    paths = timed("main paths", phase_main_paths, problems)
+    paths, main_refs = timed("main paths", phase_main_paths, problems)
     paths["salt_survey_128_8src"], survey_results = timed(
         "survey", phase_survey)
     timed("adjoint", phase_adjoint)
     timed("card vs cpu", phase_card_vs_cpu)
     timed("survey card vs cpu", phase_survey_card_vs_cpu)
-    paths["solve_batch_triaxial_128_4freq"] = timed(
+    paths["solve_batch_triaxial_128_4freq"], batch_ref = timed(
         "solve_batch", phase_solve_batch, problems)
+    paths.update(timed("multi-device", phase_multi_device, problems,
+                       main_refs, batch_ref))
+    del main_refs, batch_ref
     paths["salt_survey_128_8src_batch"] = timed(
         "survey batch", phase_survey_batch, survey_results)
     timed("inversion", phase_inversion)

@@ -21,7 +21,9 @@ semicoarsening and line relaxation, or stand-alone multigrid
 ``Fourier`` time-domain transform; ``inversion.native.minimize`` (imported
 on first use, as in emg3d_tpu).  On the card every multigrid cycle runs as
 a replay of a captured CUDA graph (``EMG3D_TPU_CYCLE_JIT``, as in
-emg3d_tpu).
+emg3d_tpu).  ``emg3d_tpu_torch.parallel`` spreads a solve's grid, or a
+batch's tasks, over a list of devices (``solve(..., mesh=)``,
+``solve_batch(..., mesh=)``).
 """
 
 # ``convert`` is, as in emg3d_tpu, the function of ``io``; the module

@@ -42,6 +42,7 @@ import torch
 from emg3d_tpu_torch.ops import gs_phase, line_phase
 
 __all__ = ["gauss_seidel", "gauss_seidel_sweep", "gauss_seidel_phase",
+           "phase_runner",
            "gauss_seidel_line", "gauss_seidel_line_sweep",
            "gauss_seidel_line_phase", "phase_colors", "line_phase_colors",
            "solve_banded_5x5"]
@@ -58,10 +59,20 @@ def _solve_lower_unrolled(mat_rows, rhs_rows):
     ``mat_rows``: list of n tensors (..., n) — the matrix rows;
     ``rhs_rows``: list of n tensors (..., m) — the rhs rows.
     Returns list of n tensors (..., m) — the solution rows.
+
+    A right-hand side of one column gets a second, zero one: every update
+    of the rhs then loops over a column axis of fixed length.  Otherwise
+    its operands coalesce into one long loop, whose last entries (a
+    remainder of the vector width) PyTorch computes with other rounding
+    than the rest, and an entry's last bit would depend on how many
+    systems the call solves (on the CPU: the sharded smoothing of
+    ``parallel.domain`` equals the unsharded one bit for bit).
     """
     n = len(mat_rows)
     rows = list(mat_rows)
-    rhs = list(rhs_rows)
+    single = rhs_rows[0].shape[-1] == 1
+    rhs = [torch.cat([r, torch.zeros_like(r)], dim=-1) if single else r
+           for r in rhs_rows]
 
     for k in range(n):
         inv_piv = 1.0 / rows[k][..., k]
@@ -76,7 +87,7 @@ def _solve_lower_unrolled(mat_rows, rhs_rows):
         for j in range(i + 1, n):
             acc = acc - rows[i][..., j, None] * x[j]
         x[i] = acc / rows[i][..., i, None]
-    return x
+    return [xi[..., :1] for xi in x] if single else x
 
 
 def solve_banded_5x5(mat, rhs):
@@ -152,19 +163,34 @@ def gauss_seidel(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     nu x 8 phases.
     """
     shape = (hx.numel(), hy.numel(), hz.numel())
-    if ex.device.type != "cpu":
-        plan = gs_phase.GsPlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,
-                               zeta, hx, hy, hz, scale)
-        for sweep in range(nu):
-            for c in phase_colors(shape, sweep % 2 == 1):
-                plan.launch(*c)
-        return ex, ey, ez
-    fields = (ex, ey, ez)
+    run = phase_runner(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                       hx, hy, hz, scale=scale)
     for sweep in range(nu):
-        fields = gauss_seidel_sweep(
-            *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, sweep % 2 == 1, scale)
-    return fields
+        for c in phase_colors(shape, sweep % 2 == 1):
+            run(*c)
+    return ex, ey, ez
+
+
+def phase_runner(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                 hx, hy, hz, axis=None, scale=None):
+    """A function that relaxes one color of these tensors in place: the
+    point phase of parity (px, py, pz) (``axis`` None) or the line phase
+    along ``axis`` of parity (p1, p2).
+
+    CUDA tensors are validated once: it launches from one plan
+    (``gs_phase.GsPlan``, ``line_phase.LinePlan``); CPU tensors run the
+    plain versions.
+    """
+    args = (ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta, hx, hy, hz)
+    if ex.device.type != "cpu":
+        if axis is None:
+            return gs_phase.GsPlan(*args, scale).launch
+        return line_phase.LinePlan(*args, axis, scale).launch
+    if axis is None:
+        return lambda px, py, pz: _gauss_seidel_phase_torch(
+            *args, px, py, pz, scale)
+    return lambda p1, p2: _line_relax_phase_torch(*args, p1, p2, axis,
+                                                  scale)
 
 
 def gauss_seidel_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
@@ -468,20 +494,15 @@ def gauss_seidel_line(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
     tensors are validated once: one ``line_phase.LinePlan`` launches all
     nu x 4 phases.
     """
-    if ex.device.type != "cpu":
-        plan = line_phase.LinePlan(ex, ey, ez, sx, sy, sz, eta_x, eta_y,
-                                   eta_z, zeta, hx, hy, hz, axis, scale)
-        shape = (hx.numel(), hy.numel(), hz.numel())
-        for sweep in range(nu):
-            for c in line_phase_colors(shape, axis, sweep % 2 == 1):
-                plan.launch(*c)
-        return ex, ey, ez
-    fields = (ex, ey, ez)
+    if axis not in line_phase.FRAMES:
+        raise ValueError(f"axis must be 0, 1, or 2; got {axis}.")
+    shape = (hx.numel(), hy.numel(), hz.numel())
+    run = phase_runner(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
+                       hx, hy, hz, axis=axis, scale=scale)
     for sweep in range(nu):
-        fields = gauss_seidel_line_sweep(
-            *fields, sx, sy, sz, eta_x, eta_y, eta_z, zeta,
-            hx, hy, hz, sweep % 2 == 1, axis, scale)
-    return fields
+        for c in line_phase_colors(shape, axis, sweep % 2 == 1):
+            run(*c)
+    return ex, ey, ez
 
 
 def gauss_seidel_line_sweep(ex, ey, ez, sx, sy, sz, eta_x, eta_y, eta_z,

@@ -1,4 +1,4 @@
-"""Batched multi-(source, frequency) solves on one device (PyTorch).
+"""Batched multi-(source, frequency) solves over a list of devices.
 
 Port of ``emg3d_tpu.parallel.batch``.  The reference parallelizes a
 survey by pickling one task per (source, frequency) to a process pool
@@ -11,6 +11,15 @@ the axis, and BiCGSTAB's scalars become one per task.  The cycle and
 its level operations are the solver's own (``solver._cycle_correction``),
 which read the task axis and a level's scale.
 
+The task axis is split over the entries of a 1-D device mesh
+(:func:`make_task_mesh`, ``mesh=``), as the JAX package shards it: one
+contiguous chunk of lanes per entry, each with its own level tensors on
+its device, the batch padded to a multiple of the mesh size with copies
+of the last task.  One host loop drives every chunk and decides for all
+lanes together: per cycle it issues every chunk's residual norm, reads
+all lanes' norms with one sync, then issues every chunk's correction.
+Entries may repeat a device (``['cuda:0'] * 4``).
+
 All tasks of one batched solve share the grid; the Simulation layer
 groups tasks by computational grid and runs one batched solve per group
 (``Simulation._batch_groups``).
@@ -20,12 +29,10 @@ Two hierarchy layouts (:func:`_build_hierarchy_batched`): without
 carries a scale ``s_k / s_0`` (``_Level.scale``); with it, eta is
 stacked per task.
 
-Not carried over from the JAX module, for one card: the device mesh
-(``make_task_mesh``, ``mesh``, ``axis``, padding to the mesh size and the
-``NamedSharding`` placements); the pre-blocked smoother operands
-(``blk``/``blk_t``; the port has no ``ops/blocked.py``); the
-double-single residual (Hopper has FP64: the residual is evaluated in
-native complex128/float64).
+Not carried over from the JAX module: the pre-blocked smoother operands
+(``blk``/``blk_t``; the port has no ``ops/blocked.py``); the double-single
+residual (Hopper has FP64: the residual is evaluated in native
+complex128/float64).
 """
 
 import dataclasses
@@ -37,8 +44,22 @@ import torch
 
 from emg3d_tpu_torch import fields, models, solver
 from emg3d_tpu_torch.ops import operator
+from emg3d_tpu_torch.parallel import domain
 
-__all__ = ["solve_batch", "solve_batch_fields"]
+__all__ = ["solve_batch", "solve_batch_fields", "make_task_mesh"]
+
+
+def make_task_mesh(n_devices=None, devices=None, axis="task"):
+    """A 1-D device mesh over (the first ``n_devices`` of) ``devices``.
+
+    ``devices``: a list of devices (an entry may repeat, e.g.
+    ``['cuda:0'] * 4`` or ``['cpu'] * 3``); default every CUDA card, and
+    without one it raises.
+    """
+    devs = domain.device_list(n_devices, devices)
+    grid = np.empty(len(devs), dtype=object)
+    grid[:] = devs
+    return domain.DeviceGrid(grid, (axis,))
 
 
 class _BatchHierarchies(solver._Hierarchies):
@@ -49,14 +70,14 @@ class _BatchHierarchies(solver._Hierarchies):
     ``scales`` selects the shared-eta layout.
     """
 
-    def __init__(self, vmodels, var, scales=None):
-        super().__init__(vmodels[0], var)
+    def __init__(self, vmodels, var, scales=None, device=None):
+        super().__init__(vmodels[0], var, device)
         self.vmodels = vmodels
         self.scales = scales
 
     def _build(self, sc_dir, lr_dir, clevel_max):
         return _build_hierarchy_batched(
-            self.vmodels, sc_dir, lr_dir, clevel_max, self.var.device,
+            self.vmodels, sc_dir, lr_dir, clevel_max, self.device,
             self.dtypes, self.scales)
 
 
@@ -104,25 +125,109 @@ def _build_hierarchy_batched(vmodels, sc_dir, lr_dir, clevel_max, device,
     return metas[0], levels
 
 
+
+
+# --------------------------------------------------------------------------
+# The lanes of a batch, in chunks over the mesh.
+# --------------------------------------------------------------------------
+
+class _Lanes:
+    """The lanes of a batch in contiguous chunks, one per mesh entry.
+
+    ``tasks[lane]`` is the task a lane holds (lanes are recompacted by an
+    active shrink); chunk c holds the lanes ``bounds[c]`` on
+    ``devices[c]``, with its hierarchy ``hiers[c]`` (``make_hier(tasks of
+    the chunk, device)``).  A batched field is a list of per-chunk tuples
+    of tensors with a leading lane axis.
+    """
+
+    def __init__(self, devices, tasks, make_hier):
+        self.devices = list(devices)
+        self.tasks = np.asarray(tasks)
+        self.make_hier = make_hier
+        m = self.tasks.size // len(self.devices)
+        self.bounds = [(c * m, (c + 1) * m) for c in range(len(devices))]
+        self.hiers = [make_hier(self.tasks[a:b], dev)
+                      for (a, b), dev in zip(self.bounds, self.devices)]
+
+    @property
+    def dtypes(self):
+        return self.hiers[0].dtypes
+
+    def get(self, sc_dir, lr_dir):
+        """Every chunk's (meta, levels)."""
+        return [h.get(sc_dir, lr_dir) for h in self.hiers]
+
+    def split(self, a, dtype=None):
+        """A host array over the lanes -> per-chunk device tensors."""
+        return [torch.as_tensor(a[lo:hi], dtype=dtype, device=dev)
+                for (lo, hi), dev in zip(self.bounds, self.devices)]
+
+    def host(self, chunks):
+        """Per-chunk device tensors over lanes -> one host array (one
+        sync)."""
+        dev = self.devices[0]
+        return torch.cat([c.to(dev) for c in chunks]).cpu().numpy()
+
+    def lane(self, fs, lane):
+        """Lane ``lane`` of a batched field: a tuple of tensors."""
+        for c, (lo, hi) in enumerate(self.bounds):
+            if lo <= lane < hi:
+                return tuple(x[lane - lo] for x in fs[c])
+        raise IndexError(lane)
+
+    def select(self, keep):
+        """The lanes ``keep``, recompacted over the same mesh entries."""
+        return _Lanes(self.devices, self.tasks[keep], self.make_hier)
+
+    def take(self, fs, keep, new):
+        """A batched field (or a per-chunk list of lane vectors) on the
+        lanes ``keep``, in the chunks of ``new`` (``select(keep)``)."""
+        single = isinstance(fs[0], torch.Tensor)
+        fs = [(x,) if single else x for x in fs]
+        out = []
+        for (lo, hi), dev in zip(new.bounds, new.devices):
+            lanes = [self.lane(fs, int(k)) for k in keep[lo:hi]]
+            out.append(tuple(torch.stack([ln[j].to(dev) for ln in lanes])
+                             for j in range(len(fs[0]))))
+        return [x[0] for x in out] if single else out
+
+
+def _to_lanes(lanes, per_task):
+    """Per-task tuples of device tensors -> a batched field of ``lanes``."""
+    return [tuple(torch.stack([per_task[t][j].to(dev)
+                               for t in range(lo, hi)]) for j in range(3))
+            for (lo, hi), dev in zip(lanes.bounds, lanes.devices)]
+
+
+def _from_lanes(fs):
+    """A batched field -> a tuple of host arrays over all lanes."""
+    return tuple(np.concatenate([c[j].cpu().numpy() for c in fs])
+                 for j in range(3))
+
+
 # --------------------------------------------------------------------------
 # Active shrink (straggler recompaction).
 #
 # Converged tasks still occupy lanes: the batch runs matvecs and
 # preconditioner cycles for them in lockstep.  When enough tasks have
 # converged, the batch is recompacted to half (a quarter, ...) its size,
-# as in the JAX package.  Opt-in via EMG3D_TPU_BATCH_SHRINK=1 (read per
-# solve; the same variable as the JAX package's).
+# a multiple of the mesh size, as in the JAX package.  Opt-in via
+# EMG3D_TPU_BATCH_SHRINK=1 (read per solve; the same variable as the JAX
+# package's).
 # --------------------------------------------------------------------------
 
 def _shrink_on():
     return os.environ.get("EMG3D_TPU_BATCH_SHRINK", "0") == "1"
 
 
-def _shrink_size(ntask, n_active):
-    """Largest halving of ``ntask`` that holds all active tasks."""
-    floor = max(int(n_active), 1)
+def _shrink_size(ntask, n_active, nd=1):
+    """Largest halving of ``ntask`` that holds all active tasks, a
+    multiple of the mesh size ``nd``."""
+    nd = max(int(nd), 1)
+    floor = max(int(n_active), nd, 1)
     new = int(ntask)
-    while new // 2 >= floor:
+    while new // 2 >= floor and (new // 2) % nd == 0:
         new //= 2
     return new
 
@@ -136,20 +241,17 @@ def _keep_lanes(active, new_n):
     return np.concatenate([act, inact[:new_n - act.size]])
 
 
-def _take_fields(fs, keep):
-    idx = torch.as_tensor(keep, device=fs[0].device)
-    return tuple(c.index_select(0, idx) for c in fs)
-
-
 def _take_level(lvl, keep):
     """The level for the lanes ``keep``: its scales, or its stacked eta."""
+    idx = torch.as_tensor(keep, device=lvl.ops[0].device)
+
     def take(t):
-        return None if t is None else _take_fields((t,), keep)[0]
+        return None if t is None else t.index_select(0, idx)
 
     def take_ops(ops):
         if ops is None or ops[0].dim() != 4:
             return ops
-        return (*_take_fields(ops[:3], keep), *ops[3:])
+        return (*(c.index_select(0, idx) for c in ops[:3]), *ops[3:])
 
     return dataclasses.replace(
         lvl, ops=take_ops(lvl.ops), ops64=take_ops(lvl.ops64),
@@ -157,7 +259,7 @@ def _take_level(lvl, keep):
 
 
 class _SelectedHierarchies:
-    """Lane-sliced view of a (possibly already sliced) hierarchy cache."""
+    """Lane-sliced view of a hierarchy cache (the lanes ``keep``)."""
 
     def __init__(self, parent, keep):
         self.parent = parent
@@ -180,24 +282,33 @@ class _SelectedHierarchies:
 # The reference's production configuration (sslsolver + semicoarsening +
 # linerelaxation, emg3d/solver.py:82-140) for the whole batch at once: the
 # Krylov scalars become (B,) device tensors (one (rho, alpha, omega) per
-# task) and every vector operation is batched over the task axis.  The
-# vectors are complex128/float64, as in ``solver.krylov``; the
-# preconditioner runs in the working precision.  Per-task convergence is
-# an ``active`` mask that freezes a task's x once its residual passes the
-# tolerance; guarded divisions make post-breakdown algebra inert (zeros)
-# instead of NaN.
+# task, split over the chunks like the fields) and every vector operation
+# is batched over the task axis.  The vectors are complex128/float64, as
+# in ``solver.krylov``; the preconditioner runs in the working precision.
+# Per-task convergence is an ``active`` mask that freezes a task's x once
+# its residual passes the tolerance; guarded divisions make
+# post-breakdown algebra inert (zeros) instead of NaN.
 # --------------------------------------------------------------------------
 
 def _bdot(a, b):
-    """Per-task conjugated inner product over field tuples -> (B,)."""
-    return sum(torch.sum(torch.conj(x) * y, dim=(1, 2, 3))
-               for x, y in zip(a, b))
+    """Per-task conjugated inner product over field tuples -> (B,).
+
+    Every task's sum is reduced on its own: a reduction over a task axis
+    may split its work by the axis' width, and a lane's Krylov scalars,
+    so its field, would then depend on how many lanes share its chunk
+    (the task mesh reproduces the unsharded batch bit for bit).
+    """
+    return torch.stack([
+        sum(torch.vdot(x[k].reshape(-1), y[k].reshape(-1))
+            for x, y in zip(a, b)) for k in range(a[0].shape[0])])
 
 
 def _bnorm_dev(a):
-    """Per-task l2 norm over field tuples -> (B,) real."""
-    return torch.sqrt(sum(torch.sum(torch.abs(x) ** 2, dim=(1, 2, 3))
-                          for x in a))
+    """Per-task l2 norm over field tuples -> (B,) real (reduced task by
+    task, as in :func:`_bdot`)."""
+    return torch.sqrt(torch.stack([
+        sum(torch.sum(torch.abs(x[k]) ** 2) for x in a)
+        for k in range(a[0].shape[0])]))
 
 
 def _guarded_div(num, den):
@@ -256,96 +367,119 @@ def _bamat(e, lvl):
     return operator.amat_x(*e, *solver._scaled(lvl.ops64, lvl.scale64))
 
 
-def _bprecond(s, var, bhier):
+def _bprecond(s, var, lanes):
     """Apply ``var.maxit`` batched MG cycles to s from a zero guess.
 
     Batched counterpart of the per-task preconditioner (``mg_precond``
     in ``solver.krylov``): split-precision accumulation inside, sc/lr
-    direction cycling shared with the outer loop via ``var``.  Runs a
-    fixed cycle count (per-task early exit would desynchronize the
-    batch); the count is the small ``maxcycle`` (e.g. 3) the reference
-    also uses as its inner budget.
+    direction cycling shared with the outer loop via ``var``, every
+    chunk cycled once per cycle.  Runs a fixed cycle count (per-task
+    early exit would desynchronize the batch); the count is the small
+    ``maxcycle`` (e.g. 3) the reference also uses as its inner budget.
     """
-    r = tuple(c.to(bhier.dtypes[0]) for c in s)
-    e_hi = tuple(torch.zeros_like(c) for c in r)
-    e_lo = tuple(torch.zeros_like(c) for c in r)
+    r = [tuple(c.to(lanes.dtypes[0]) for c in sc) for sc in s]
+    e_hi = [tuple(torch.zeros_like(c) for c in rc) for rc in r]
+    e_lo = [tuple(torch.zeros_like(c) for c in rc) for rc in r]
     for cyc in range(var.maxit):
         sc_next, lr_next = solver._next_dirs(var)
-        meta, levels = bhier.get(var.sc_dir, var.lr_dir)
-        de = solver._cycle_correction(meta, levels, r, var, cyc == 0)
-        solver._accumulate_(e_hi, e_lo, de)
+        chunks = lanes.get(var.sc_dir, var.lr_dir)
+        for c, (meta, levels) in enumerate(chunks):
+            de = solver._cycle_correction(meta, levels, r[c], var, cyc == 0)
+            solver._accumulate_(e_hi[c], e_lo[c], de)
         var.sc_dir, var.lr_dir = sc_next, lr_next
         var.it += 1
         if cyc + 1 < var.maxit:
-            r, _ = solver._residual_norm_split(e_hi, e_lo, s, levels[0],
-                                               per_task=True)
-    hdt = s[0].dtype
-    return tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(e_hi, e_lo))
+            r = [solver._residual_norm_split(
+                e_hi[c], e_lo[c], s[c], levels[0], per_task=True)[0]
+                for c, (_, levels) in enumerate(chunks)]
+    hdt = s[0][0].dtype
+    return [tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(eh, el))
+            for eh, el in zip(e_hi, e_lo)]
 
 
-def _restore_lanes(x, cur, stash, ntask):
-    """The full batch from the lanes ``cur`` of ``x`` and the ``stash``
-    ({task: field tuple}) of the lanes a shrink dropped."""
-    if cur.size == ntask:
-        return x
+def _restore_lanes(x, lanes, stash, ntask):
+    """The full batch as host arrays from the batched field ``x`` of
+    ``lanes`` and the ``stash`` ({task: tuple of host arrays}) of the
+    lanes a shrink dropped."""
+    parts = _from_lanes(x)
+    if lanes.tasks.size == ntask and not stash:
+        return parts
     out = dict(stash)
-    for lane, task in enumerate(cur):
-        out[int(task)] = tuple(c[lane] for c in x)
-    return tuple(torch.stack([out[k][j] for k in range(ntask)])
+    for lane, task in enumerate(lanes.tasks):
+        out[int(task)] = tuple(c[lane] for c in parts)
+    return tuple(np.stack([out[k][j] for k in range(ntask)])
                  for j in range(3))
 
 
-def _bicgstab_batch(s, var, bhier, verb=0, x0=None):
+def _stash(stash, x, lanes, keep, hdt=None, lo=None):
+    """Stash the host fields of the lanes a shrink drops (``x`` and, for
+    a split iterate, ``lo``, combined in ``hdt``)."""
+    for lane in np.setdiff1d(np.arange(lanes.tasks.size), keep):
+        field = lanes.lane(x, lane)
+        if lo is not None:
+            field = tuple(h.to(hdt) + low.to(hdt) for h, low in
+                          zip(field, lanes.lane(lo, lane)))
+        stash[int(lanes.tasks[lane])] = tuple(c.cpu().numpy()
+                                              for c in field)
+
+
+def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
     """Right-preconditioned BiCGSTAB over the task batch.
 
     Batched counterpart of ``solver._bicgstab`` (reference role:
-    emg3d/solver.py:759-765).  ``x0`` warm-starts the iteration (the
-    initial residual is then s - A x0).  Returns
-    (x, rnorm, it, converged_mask).
+    emg3d/solver.py:759-765); ``s`` (and ``x0``, which warm-starts the
+    iteration: the initial residual is then s - A x0) are batched fields
+    of ``lanes``.  Returns (x as host arrays over all tasks, rnorm, it,
+    converged_mask).
     """
-    arrs0 = bhier.get(var.sc_dir, var.lr_dir)[1][0]
+    arrs0 = [levels[0] for _, levels in lanes.get(var.sc_dir, var.lr_dir)]
+    nchunk = len(lanes.devices)
 
-    bnrm = _bnorm_dev(s).cpu().numpy()
+    bnrm = lanes.host([_bnorm_dev(sc) for sc in s])
     atol = np.maximum(1e-30, var.tol * np.where(bnrm == 0, 1.0, bnrm))
-    ones = torch.ones(bnrm.shape, dtype=s[0].dtype, device=s[0].device)
+    ones = lanes.split(np.ones(bnrm.shape), s[0][0].dtype)
 
     if x0 is None:
-        x = tuple(torch.zeros_like(c) for c in s)
+        x = [tuple(torch.zeros_like(c) for c in sc) for sc in s]
         r = s                        # r = s - A·0
         rnorm = bnrm.copy()
     else:
         x = x0
-        r = _bxpay(s, -ones, _bamat(x, arrs0))
-        rnorm = _bnorm_dev(r).cpu().numpy()
+        r = [_bxpay(s[c], -ones[c], _bamat(x[c], arrs0[c]))
+             for c in range(nchunk)]
+        rnorm = lanes.host([_bnorm_dev(rc) for rc in r])
     rhat = r
     rho = alpha = omega = ones
-    v = p = tuple(torch.zeros_like(c) for c in s)
+    v = p = [tuple(torch.zeros_like(c) for c in sc) for sc in s]
 
     # Zero-source (or already-converged warm-started) tasks: born done.
     active = (bnrm > 0) & (rnorm >= atol)
     if not active.any():
-        return x, rnorm, 0, rnorm < atol
+        return _from_lanes(x), rnorm, 0, rnorm < atol
 
-    # Lane bookkeeping for active shrink: ``cur[lane]`` is the original
-    # task index held by lane ``lane``; dropped (converged) tasks'
+    # Lane bookkeeping for active shrink: ``lanes.tasks[lane]`` is the
+    # original task held by lane ``lane``; dropped (converged) tasks'
     # solutions are stashed at shrink time.
     ntask = active.size
-    cur = np.arange(ntask)
     stash = {}
     shrink = _shrink_on()
 
     it = 0
     for it in range(1, var.ssl_maxit + 1):
-        p, rho = _bcg_direction(r, rhat, p, v, rho, alpha, omega,
-                                first=it == 1)
-        phat = _bprecond(p, var, bhier) if var.cycle else p
-        v, alpha, svec = _bcg_alpha(phat, r, rhat, rho, arrs0)
-        shat = _bprecond(svec, var, bhier) if var.cycle else svec
-        x, r, omega, rnorm_dev = _bcg_advance(
-            shat, phat, svec, x, alpha,
-            torch.as_tensor(active[cur], device=s[0].device), arrs0)
+        cur = lanes.tasks
+        p, rho = zip(*(_bcg_direction(r[c], rhat[c], p[c], v[c], rho[c],
+                                      alpha[c], omega[c], first=it == 1)
+                       for c in range(nchunk)))
+        phat = _bprecond(p, var, lanes) if var.cycle else p
+        v, alpha, svec = zip(*(_bcg_alpha(phat[c], r[c], rhat[c], rho[c],
+                                          arrs0[c]) for c in range(nchunk)))
+        shat = _bprecond(svec, var, lanes) if var.cycle else svec
+        act = lanes.split(active[cur])
+        x, r, omega, rnorm_dev = zip(*(_bcg_advance(
+            shat[c], phat[c], svec[c], x[c], alpha[c], act[c], arrs0[c])
+            for c in range(nchunk)))
 
-        rnorm[cur] = np.where(active[cur], rnorm_dev.cpu().numpy(),
+        rnorm[cur] = np.where(active[cur], lanes.host(rnorm_dev),
                               rnorm[cur])
         active = active & (rnorm >= atol)
         var.ssl_it += 1
@@ -357,43 +491,44 @@ def _bicgstab_batch(s, var, bhier, verb=0, x0=None):
             break
 
         if shrink:
-            new_n = _shrink_size(cur.size, int(active[cur].sum()))
+            new_n = _shrink_size(cur.size, int(active[cur].sum()), nchunk)
             if new_n < cur.size:
                 keep = _keep_lanes(active[cur], new_n)
-                for lane in np.setdiff1d(np.arange(cur.size), keep):
-                    stash[int(cur[lane])] = tuple(c[lane] for c in x)
-                x, r, rhat, v, p = (_take_fields(f, keep)
+                _stash(stash, x, lanes, keep)
+                new = lanes.select(keep)
+                x, r, rhat, v, p = (lanes.take(f, keep, new)
                                     for f in (x, r, rhat, v, p))
-                rho, alpha, omega = _take_fields((rho, alpha, omega), keep)
-                bhier = _SelectedHierarchies(bhier, keep)
-                arrs0 = _take_level(arrs0, keep)
-                cur = cur[keep]
+                rho, alpha, omega = (lanes.take(f, keep, new)
+                                     for f in (rho, alpha, omega))
+                lanes = new
+                arrs0 = [levels[0] for _, levels in
+                         lanes.get(var.sc_dir, var.lr_dir)]
                 if verb > 3:
                     print(f"   ssl it {it:3}: batch shrunk to "
-                          f"{cur.size}/{ntask} lanes")
+                          f"{lanes.tasks.size}/{ntask} lanes")
 
-    return _restore_lanes(x, cur, stash, ntask), rnorm, it, rnorm < atol
+    return _restore_lanes(x, lanes, stash, ntask), rnorm, it, rnorm < atol
 
 
-def _multigrid_batch(s, x0, var, bhier, l2_refe, verb=0):
+def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
     """Stand-alone multigrid cycles over the task batch.
 
     Batched counterpart of ``solver.multigrid``: the split iterate
     ``e_hi + e_lo`` in working precision, the per-task residual in
     double precision; a task is finished once converged or diverged, and
-    the batch cycles until every task is.  Returns (x as a double-
-    precision tuple, per-task norms, cycles, exit messages).
+    the batch cycles until every task is.  ``s`` and ``x0`` are batched
+    fields of ``lanes``.  Returns (x as host arrays in double precision
+    over all tasks, per-task norms, cycles, exit messages).
     """
     e_hi = (x0 if x0 is not None
-            else tuple(torch.zeros_like(c) for c in s))
-    e_lo = tuple(torch.zeros_like(c) for c in s)
-    hdt = bhier.get(var.sc_dir, var.lr_dir)[1][0].ops64[0].dtype
-    ntask = s[0].shape[0]
+            else [tuple(torch.zeros_like(c) for c in sc) for sc in s])
+    e_lo = [tuple(torch.zeros_like(c) for c in eh) for eh in e_hi]
+    hdt = lanes.get(var.sc_dir, var.lr_dir)[0][1][0].ops64[0].dtype
+    ntask = lanes.tasks.size
 
-    # Active-shrink bookkeeping (see _shrink_size): ``cur[lane]`` is the
-    # original task on lane ``lane``; finished tasks recompacted away are
-    # stashed with their combined field and exit message.
-    cur = np.arange(ntask)
+    # Active-shrink bookkeeping (see _shrink_size): ``lanes.tasks[lane]``
+    # is the original task on lane ``lane``; finished tasks recompacted
+    # away are stashed with their combined field and exit message.
     stash = {}
     l2_full = np.zeros(ntask)
     exit_full = ["MAX. ITERATION REACHED, NOT CONVERGED"] * ntask
@@ -402,10 +537,12 @@ def _multigrid_batch(s, x0, var, bhier, l2_refe, verb=0):
     it = 0
     first = True
     while True:
-        meta, levels = bhier.get(var.sc_dir, var.lr_dir)
-        r, l2_dev = solver._residual_norm_split(e_hi, e_lo, s, levels[0],
-                                                per_task=True)
-        l2 = l2_dev.cpu().numpy()
+        chunks = lanes.get(var.sc_dir, var.lr_dir)
+        r, l2_dev = zip(*(solver._residual_norm_split(
+            e_hi[c], e_lo[c], s[c], levels[0], per_task=True)
+            for c, (_, levels) in enumerate(chunks)))
+        l2 = lanes.host(l2_dev)
+        cur = lanes.tasks
         l2_full[cur] = l2
 
         rel = l2 / l2_refe[cur]
@@ -424,38 +561,40 @@ def _multigrid_batch(s, x0, var, bhier, l2_refe, verb=0):
             break
 
         if shrink:
-            new_n = _shrink_size(cur.size, int((~finished).sum()))
+            new_n = _shrink_size(cur.size, int((~finished).sum()),
+                                 len(lanes.devices))
             if new_n < cur.size:
                 keep = _keep_lanes(~finished, new_n)
+                _stash(stash, e_hi, lanes, keep, hdt, e_lo)
                 for lane in np.setdiff1d(np.arange(cur.size), keep):
-                    stash[int(cur[lane])] = tuple(
-                        h[lane].to(hdt) + lo[lane].to(hdt)
-                        for h, lo in zip(e_hi, e_lo))
                     exit_full[int(cur[lane])] = (
                         "CONVERGED" if done[lane] else "DIVERGED")
-                e_hi, e_lo, s, r = (_take_fields(f, keep)
+                new = lanes.select(keep)
+                e_hi, e_lo, s, r = (lanes.take(f, keep, new)
                                     for f in (e_hi, e_lo, s, r))
-                bhier = _SelectedHierarchies(bhier, keep)
-                meta, levels = bhier.get(var.sc_dir, var.lr_dir)
-                cur = cur[keep]
+                lanes = new
+                chunks = lanes.get(var.sc_dir, var.lr_dir)
                 if verb > 3:
                     print(f"   cycle {it:3}: batch shrunk to "
-                          f"{cur.size}/{ntask} lanes")
+                          f"{lanes.tasks.size}/{ntask} lanes")
 
         sc_next, lr_next = solver._next_dirs(var)
-        de = solver._cycle_correction(meta, levels, r, var, first)
+        for c, (meta, levels) in enumerate(chunks):
+            de = solver._cycle_correction(meta, levels, r[c], var, first)
+            solver._accumulate_(e_hi[c], e_lo[c], de)
         first = False
-        solver._accumulate_(e_hi, e_lo, de)
         var.sc_dir, var.lr_dir = sc_next, lr_next
         it += 1
 
     # Combine the split field in double precision so that the algebraic
     # accuracy survives the export.
-    x = tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(e_hi, e_lo))
-    return (_restore_lanes(x, cur, stash, ntask), l2_full, it, exit_full)
+    x = [tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(eh, el))
+         for eh, el in zip(e_hi, e_lo)]
+    return _restore_lanes(x, lanes, stash, ntask), l2_full, it, exit_full
 
 
-def solve_batch(model, sources, frequencies, verb=0, **kwargs):
+def solve_batch(model, sources, frequencies, mesh=None, axis="task",
+                verb=0, **kwargs):
     """Solve one model for many (source, frequency) tasks at once.
 
     Parameters
@@ -467,6 +606,10 @@ def solve_batch(model, sources, frequencies, verb=0, **kwargs):
         one per task.
     frequencies : list of float
         One frequency per task (same length as ``sources``).
+    mesh : DeviceGrid, optional
+        A 1-D device mesh (:func:`make_task_mesh`); the task axis is split
+        over its ``axis``, the batch padded up to a multiple of the mesh
+        size.  ``device`` is then the mesh's first device (the default).
     kwargs
         Solver options as for solve(): tol, maxit, cycle, sslsolver,
         semicoarsening, linerelaxation, nu_*, clevel, ``device`` (None:
@@ -486,10 +629,30 @@ def solve_batch(model, sources, frequencies, verb=0, **kwargs):
         raise ValueError("sources and frequencies must have equal length.")
     sfields = [fields.get_source_field(model.grid, src, freq)
                for src, freq in zip(sources, frequencies)]
-    return solve_batch_fields(model, sfields, verb=verb, **kwargs)
+    return solve_batch_fields(model, sfields, mesh=mesh, axis=axis,
+                              verb=verb, **kwargs)
 
 
-def solve_batch_fields(model, sfields, verb=0, efields=None, **kwargs):
+def _mesh_devices(mesh, axis, kwargs):
+    """The devices of the chunks; sets ``kwargs['device']`` to the
+    first."""
+    if mesh is None:
+        return None
+    if mesh.axis_names != (axis,):
+        raise ValueError(f"The task mesh must be 1-D over {axis!r}; got "
+                         f"axes {mesh.axis_names}.")
+    devices = list(mesh.devices.flat)
+    device = kwargs.get("device")
+    if device is not None and domain.device_list(
+            devices=[device])[0] != devices[0]:
+        raise ValueError(f"device={device}, but the mesh's first device "
+                         f"is {devices[0]}.")
+    kwargs["device"] = devices[0]
+    return devices
+
+
+def solve_batch_fields(model, sfields, mesh=None, axis="task", verb=0,
+                       efields=None, **kwargs):
     """Batched solve for prebuilt source fields (one per task).
 
     Engine behind :func:`solve_batch`; also the batch-mode carrier of
@@ -500,55 +663,88 @@ def solve_batch_fields(model, sfields, verb=0, efields=None, **kwargs):
 
     ``efields`` (list of Field or None, per task) warm-starts each
     task; already-converged guesses terminate with zero iterations.
+    ``mesh``/``axis``: as in :func:`solve_batch`.
     """
     t0 = time.perf_counter()
-    ntask = len(sfields)
+    nsrc = len(sfields)
 
     kwargs.setdefault("sslsolver", False)
     kwargs.setdefault("semicoarsening", False)
     kwargs.setdefault("linerelaxation", False)
+    devices = _mesh_devices(mesh, axis, kwargs)
     var = solver.MGParameters(
         shape_cells=model.shape, verb=verb, **kwargs)
     if var.sslsolver and var.sslsolver != 'bicgstab':
         raise ValueError(
             f"sslsolver='{var.sslsolver}' has no batched form; use "
             "'bicgstab' (or parallel='task').")
+    if devices is None:
+        devices = [var.device]
 
+    sfields = list(sfields)
     guesses = list(efields) if efields is not None else None
     if guesses is not None and not any(g is not None for g in guesses):
         guesses = None
 
+    # Pad the batch to a multiple of the mesh size with copies of the
+    # last task; the padding is dropped on output.
+    pad = (-nsrc) % len(devices)
+    sfields += [sfields[-1]] * pad
+    if guesses is not None:
+        guesses += [guesses[-1]] * pad
+    ntask = nsrc + pad
+
     # Shared-eta layout: all tasks see the SAME model, and without
     # epsilon_r eta is linear in s: task k's eta is (s_k/s_0) times
     # task 0's, at every hierarchy level (restriction is linear).  One
-    # eta copy + a (B,) scale vector then replaces the stacked etas.
+    # eta copy + a (B,) scale vector then replaces the stacked etas; the
+    # chunks of one device share it.
     if model.epsilon_r is None:
-        vmodels = [models.VolumeModel(model, sfields[0])]
+        vm0 = models.VolumeModel(model, sfields[0])
         scales = [sf.smu0 / sfields[0].smu0 for sf in sfields]
+        bases = {}
+
+        def make_hier(tasks, device):
+            if device not in bases:
+                bases[device] = _BatchHierarchies([vm0], var, scales,
+                                                  device)
+            if np.array_equal(tasks, np.arange(ntask)):
+                return bases[device]
+            return _SelectedHierarchies(bases[device], tasks)
+        host_model = vm0
     else:
         vmodels = [models.VolumeModel(model, sf) for sf in sfields]
-        scales = None
-    bhier = _BatchHierarchies(vmodels, var, scales)
+
+        def make_hier(tasks, device):
+            return _BatchHierarchies([vmodels[t] for t in tasks], var,
+                                     None, device)
+        host_model = vmodels[0]
+    lanes = _Lanes(devices, np.arange(ntask), make_hier)
 
     # The Krylov vectors are double precision (as in solver.krylov);
     # stand-alone multigrid keeps its source in working precision.
-    dt = (solver._host_dtypes(vmodels[0])[0] if var.sslsolver
-          else bhier.dtypes[0])
-    s = tuple(torch.stack(c) for c in zip(
-        *[solver._field_to_dev(sf, var.device, dt) for sf in sfields]))
+    dt = (solver._host_dtypes(host_model)[0] if var.sslsolver
+          else lanes.dtypes[0])
+
+    def stacked(per_task):
+        return _to_lanes(lanes, [solver._field_to_dev(f, "cpu", dt)
+                                 for f in per_task])
+
+    s = stacked(sfields)
 
     # Warm-start stack: per-task initial guesses (zeros where absent).
     x0 = None
     if guesses is not None:
-        x0 = tuple(torch.stack(c) for c in zip(*[
-            tuple(torch.zeros_like(c[0]) for c in s) if g is None
-            else solver._field_to_dev(g, var.device, dt) for g in guesses]))
+        x0 = stacked([fields.Field(model.grid, dtype=sf.field.dtype,
+                                   frequency=sf._frequency)
+                      if g is None else g
+                      for g, sf in zip(guesses, sfields)])
 
     l2_refe = np.array([np.linalg.norm(sf.field) for sf in sfields])
     l2_refe = np.where(l2_refe == 0.0, 1.0, l2_refe)
 
     if var.sslsolver:
-        x, l2, it_ssl, conv = _bicgstab_batch(s, var, bhier, verb=verb,
+        x, l2, it_ssl, conv = _bicgstab_batch(s, var, lanes, verb=verb,
                                               x0=x0)
         exit_messages = ["CONVERGED" if c else
                          "MAX. ITERATION REACHED, NOT CONVERGED"
@@ -556,25 +752,24 @@ def solve_batch_fields(model, sfields, verb=0, efields=None, **kwargs):
         it_mg = var.it
     else:
         x, l2, it_mg, exit_messages = _multigrid_batch(
-            s, x0, var, bhier, l2_refe, verb=verb)
+            s, x0, var, lanes, l2_refe, verb=verb)
         it_ssl = 0
 
-    # Unstack into Fields.
-    ex, ey, ez = (c.cpu().numpy() for c in x)
+    # Unstack into Fields (drop the padding).
     out = []
-    for i, sf in enumerate(sfields):
+    for i, sf in enumerate(sfields[:nsrc]):
         f = fields.Field(model.grid, dtype=sf.field.dtype,
                          frequency=sf._frequency)
-        f.fx, f.fy, f.fz = ex[i], ey[i], ez[i]
+        f.fx, f.fy, f.fz = (c[i] for c in x)
         out.append(f)
 
     info = {
         "it_mg": it_mg,
         "it_ssl": it_ssl,
-        "abs_error": l2,
-        "rel_error": l2 / l2_refe,
-        "ref_error": l2_refe,
-        "exit_messages": exit_messages,
+        "abs_error": l2[:nsrc],
+        "rel_error": (l2 / l2_refe)[:nsrc],
+        "ref_error": l2_refe[:nsrc],
+        "exit_messages": exit_messages[:nsrc],
         "tol": var.tol,
         # Wall clock of the whole batch (tasks run fused, there is no
         # meaningful per-task split).

@@ -25,6 +25,7 @@ from copy import deepcopy
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from emg3d_tpu_torch import (config, fields, io, maps, meshes, models,
                              utils)
@@ -36,6 +37,15 @@ __all__ = ['Simulation']
 
 def __dir__():
     return __all__
+
+
+def _batch_devices(device):
+    """The devices of a batched solve on ``device``: every CUDA card where
+    it is one of several; else None (the solve's one device)."""
+    if device.type == 'cuda' and torch.cuda.device_count() > 1:
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    return None
 
 
 @utils._known_class
@@ -574,13 +584,20 @@ class Simulation:
 
     def _batch_setup(self, tol):
         """The solver options of a batched solve: those the batch engine
-        takes, with the device, the working dtype and ``tol``."""
+        takes, with the device, the working dtype and ``tol``; and, where
+        the solve runs on one of several cards, a task mesh over all of
+        them (``mesh``), as ``emg3d_tpu`` spreads a batch over every
+        device."""
         sopts = {k: v for k, v in self.solver_opts.items()
                  if k in ('tol', 'maxit', 'cycle', 'sslsolver',
                           'semicoarsening', 'linerelaxation', 'clevel',
                           'nu_init', 'nu_pre', 'nu_coarse', 'nu_post',
                           'verb', 'device', 'dtype')}
         sopts['tol'] = tol
+        devices = _batch_devices(config.resolve_device(self.device))
+        if devices is not None and len(devices) > 1:
+            sopts['mesh'] = _batch.make_task_mesh(devices=devices)
+            sopts.pop('device')
         return sopts
 
     def _batch_groups(self, srcfreq):

@@ -1,9 +1,11 @@
 """Multigrid solver for 3-D electromagnetic diffusion (PyTorch).
 
-Port of ``emg3d_tpu.solver`` on one device: MG-preconditioned Krylov
-solvers (BiCGSTAB, CGS, GCROT(m,k)) and stand-alone multigrid (V, W or F
-cycles), with semicoarsening and line relaxation (by default BiCGSTAB,
-semicoarsening cycling over [1, 2, 3] and line relaxation over [4, 5, 6]).
+Port of ``emg3d_tpu.solver``: MG-preconditioned Krylov solvers
+(BiCGSTAB, CGS, GCROT(m,k)) and stand-alone multigrid (V, W or F cycles),
+with semicoarsening and line relaxation (by default BiCGSTAB,
+semicoarsening cycling over [1, 2, 3] and line relaxation over [4, 5, 6]),
+on one device or, with ``mesh=``, on a grid sharded over several
+(:mod:`emg3d_tpu_torch.parallel.domain`).
 
 - The hierarchies (coarse grids, restricted model, transfer weights) are
   built on the host per semicoarsening direction and placed on
@@ -54,7 +56,7 @@ def solve(model, sfield, sslsolver=True, semicoarsening=True,
     Same signature and semantics as ``emg3d_tpu.solver.solve`` (reference
     emg3d/solver.py:52-449): MG-preconditioned BiCGSTAB with
     semicoarsening and line relaxation by default; ``plain=True`` for
-    stand-alone multigrid F-cycles.  Two more keywords:
+    stand-alone multigrid F-cycles.  Three more keywords:
 
     - ``device``: where the solve runs.  The default (None) is the CUDA
       card; without a card it raises ``RuntimeError``.  Pass
@@ -62,6 +64,11 @@ def solve(model, sfield, sslsolver=True, semicoarsening=True,
       placed there.
     - ``dtype``: device working dtype of the multigrid (default
       complex64/float32 on CUDA, complex128/float64 on the CPU).
+    - ``mesh``: a ``parallel.domain.DeviceGrid`` (``make_grid_mesh``) or
+      ``GridPlacement`` shards the grid over its devices, as
+      ``emg3d_tpu.solver.solve(mesh=...)`` does; ``device`` is then the
+      mesh's first device (the default), where replicated levels and the
+      whole fields live.  The cycles run operation by operation.
 
     Returns the electric field (and an info dict if ``return_info``).
     """
@@ -73,10 +80,28 @@ def solve(model, sfield, sslsolver=True, semicoarsening=True,
         linerelaxation = False if linerelaxation is True else linerelaxation
     efield = kwargs.pop('efield', None)
 
+    # Domain decomposition: a DeviceGrid (or a GridPlacement) shards the
+    # grid over devices; see emg3d_tpu_torch.parallel.domain.
+    mesh = kwargs.pop('mesh', None)
+    placement = None
+    if mesh is not None:
+        from emg3d_tpu_torch.parallel.domain import (GridPlacement,
+                                                     device_list)
+        placement = (mesh if isinstance(mesh, GridPlacement)
+                     else GridPlacement(mesh))
+        device = kwargs.get('device')
+        if device is not None and (device_list(devices=[device])[0]
+                                   != placement.device):
+            raise ValueError(
+                f"device={device}, but the mesh's first device is "
+                f"{placement.device}.")
+        kwargs['device'] = placement.device
+
     var = MGParameters(
         sslsolver=sslsolver, semicoarsening=semicoarsening,
         linerelaxation=linerelaxation, shape_cells=model.shape, verb=verb,
         **kwargs)
+    var.placement = placement
 
     var.cprint(f"\n:: emg3d-tpu-torch START :: {var.time.now} ::\n", 2)
     var.cprint(var, 2)
@@ -258,6 +283,10 @@ class _Level:
     scale: Optional[torch.Tensor] = None
     scale64: Optional[torch.Tensor] = None
 
+    # A level of a grid-sharded solve is a ``parallel.domain.ShardedLevel``
+    # (``sharded`` True), whose methods the level operations call.
+    sharded = False
+
 
 def _current_sc_dir(sc_dir, shape):
     """Effective semicoarsening direction for this grid's shape.
@@ -304,7 +333,8 @@ def _coarsen_flags(c_sc_dir):
             c_sc_dir not in [3, 4, 5])
 
 
-def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes):
+def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes,
+                     placement=None):
     """Build the per-level device tensors for one sc_dir, finest first.
 
     Returns ``(meta, levels)``: ``meta`` holds per level the static
@@ -312,6 +342,10 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes):
     ``levels`` the :class:`_Level` tensors.  Model restriction is the
     2/4/8-cell sum of the reference (solver.py:1667-1718), on the host in
     float64/complex128; weights per Muld06 Eq. 9.
+
+    ``placement`` (a ``parallel.domain.GridPlacement``) shards the fine
+    levels over its mesh (``domain.ShardedLevel``), as long as its plan
+    keeps them sharded; the coarser ones are built on ``device``.
     """
     rdt = dtypes[1]
     eta_x = np.asarray(vmodel.eta_x)
@@ -326,15 +360,21 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes):
                                                             dtype=dt)
 
     meta, levels = [], []
+    layout = (None if placement is None
+              else placement.layout(vmodel.grid.shape_cells))
     for level in range(clevel_max + 1):
         grid = meshes.BaseMesh(h, origin)
         shape = tuple(grid.shape_cells)
-        lvl = _Level(_level_tensors(eta_x, eta_y, eta_z, zeta, h, device,
-                                    dtypes))
-        if level == 0:
-            host = _host_dtypes(vmodel)
-            lvl.ops64 = (lvl.ops if host == dtypes else _level_tensors(
-                eta_x, eta_y, eta_z, zeta, h, device, host))
+        host = _host_dtypes(vmodel) if level == 0 else None
+        if layout is not None:
+            lvl = placement.level(layout, (eta_x, eta_y, eta_z, zeta), h,
+                                  dtypes, host)
+        else:
+            lvl = _Level(_level_tensors(eta_x, eta_y, eta_z, zeta, h,
+                                        device, dtypes))
+            if level == 0:
+                lvl.ops64 = (lvl.ops if host == dtypes else _level_tensors(
+                    eta_x, eta_y, eta_z, zeta, h, device, host))
         levels.append(lvl)
         if level == clevel_max:
             meta.append((shape, _current_lr_dir(lr_dir, shape), None))
@@ -352,16 +392,23 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes):
             if coarsen[i]:
                 nodes = getattr(grid, 'nodes_' + coord)
                 cnodes = getattr(cgrid, 'nodes_' + coord)
-                w = transfer.restrict_weights(
+                rw.append(transfer.restrict_weights(
                     nodes, getattr(grid, 'cell_centers_' + coord), h[i],
-                    cnodes, getattr(cgrid, 'cell_centers_' + coord), ch[i])
-                rw.append(tuple(dev(x, rdt) for x in w))
-                idx, wp = transfer.prolong_meta(cnodes, nodes)
-                pm.append((dev(idx), dev(wp, rdt)))
+                    cnodes, getattr(cgrid, 'cell_centers_' + coord), ch[i]))
+                pm.append(transfer.prolong_meta(cnodes, nodes))
             else:
                 rw.append(None)
                 pm.append(None)
-        lvl.rw, lvl.pm = tuple(rw), tuple(pm)
+        if layout is not None:
+            lvl.set_transfer(coarsen, tuple(cgrid.shape_cells), rw, pm)
+            layout = lvl.coarse[0] if lvl.coarse[1] else None
+        else:
+            lvl.rw = tuple(None if w is None else tuple(dev(x, rdt)
+                                                        for x in w)
+                           for w in rw)
+            lvl.pm = tuple(None if m is None else (dev(m[0]),
+                                                   dev(m[1], rdt))
+                           for m in pm)
 
         # Restrict model parameters (host numpy).
         eta_x = transfer.restrict_model_parameters(eta_x, coarsen)
@@ -378,16 +425,31 @@ class _Hierarchies:
 
     The level tensors depend only on sc_dir; lr_dir only changes the
     static per-level c_lr_dir flags, so the tensors are shared across
-    the line-relaxation cycling values (e.g. '456').
+    the line-relaxation cycling values (e.g. '456').  The levels are
+    built on ``device`` (default ``var.device``), the fine ones sharded
+    where ``var.placement`` says so.
     """
 
-    def __init__(self, vmodel, var):
+    def __init__(self, vmodel, var, device=None):
         self.vmodel = vmodel
         self.var = var
+        self.device = var.device if device is None else device
         self.dtypes = config.working_dtypes(
-            var.device, np.iscomplexobj(vmodel.eta_x), var.dtype)
+            self.device, np.iscomplexobj(vmodel.eta_x), var.dtype)
+        self.placement = var.placement
+        self.layout = (None if self.placement is None
+                       else self.placement.layout(vmodel.grid.shape_cells))
         self._cache = {}
         self._acache = {}
+
+    def to_dev(self, field, dtype):
+        """A host Field on the finest level: device tensors, or Pieces of
+        its layout where it is sharded."""
+        if self.layout is None:
+            return _field_to_dev(field, self.device, dtype)
+        from emg3d_tpu_torch.parallel import domain
+        return domain.place_field(self.layout, (field.fx, field.fy,
+                                                field.fz), dtype)
 
     def get(self, sc_dir, lr_dir):
         key = (int(sc_dir), int(lr_dir))
@@ -404,7 +466,7 @@ class _Hierarchies:
 
     def _build(self, sc_dir, lr_dir, clevel_max):
         return _build_hierarchy(self.vmodel, sc_dir, lr_dir, clevel_max,
-                                self.var.device, self.dtypes)
+                                self.device, self.dtypes, self.placement)
 
 
 # ==========================================================================
@@ -424,12 +486,22 @@ def _smooth(e, s, lvl, c_lr_dir, nu):
     sweeps before the next one runs.
     """
     if c_lr_dir == 0:
-        e = smoothers.gauss_seidel(*e, *s, *lvl.ops, nu, lvl.scale)
+        e = _relax(e, s, lvl, nu)
     for axis, dirs in LINE_AXES:
         if c_lr_dir in dirs:
-            e = smoothers.gauss_seidel_line(*e, *s, *lvl.ops, nu, axis,
-                                            lvl.scale)
+            e = _relax(e, s, lvl, nu, axis)
     return e
+
+
+def _relax(e, s, lvl, nu, axis=None):
+    """``nu`` sweeps of the point smoother (``axis`` None) or of the line
+    smoother along ``axis``, in place on e."""
+    if lvl.sharded:
+        return lvl.relax(e, s, nu, axis)
+    if axis is None:
+        return smoothers.gauss_seidel(*e, *s, *lvl.ops, nu, lvl.scale)
+    return smoothers.gauss_seidel_line(*e, *s, *lvl.ops, nu, axis,
+                                       lvl.scale)
 
 
 def _scaled(ops, scale):
@@ -443,6 +515,8 @@ def _scaled(ops, scale):
 
 def _restrict(e, s, lvl, coarsen):
     """Residual + restriction -> (coarse source, zero coarse guess)."""
+    if lvl.sharded:
+        return lvl.restrict(e, s, coarsen)
     res = operator.residual(*s, *e, *_scaled(lvl.ops, lvl.scale))
     cs = transfer.restrict(*res, lvl.rw, coarsen)
     return cs, tuple(torch.zeros_like(c) for c in cs)
@@ -450,6 +524,8 @@ def _restrict(e, s, lvl, coarsen):
 
 def _prolong(e, ce, lvl, coarsen):
     """Add the prolonged coarse correction to e, in place."""
+    if lvl.sharded:
+        return lvl.prolong(e, ce, coarsen)
     return transfer.prolong(*e, *ce, lvl.pm, coarsen)
 
 
@@ -464,6 +540,8 @@ def _residual_norm_split(e_hi, e_lo, s, lvl, per_task=False):
     and the norm as a 0-d device tensor, or with ``per_task`` the norms
     of a task axis as a (B,) device tensor.
     """
+    if lvl.sharded and not per_task:
+        return lvl.residual_norm_split(e_hi, e_lo, s)
     ops64 = _scaled(lvl.ops64, lvl.scale64)
     up = ops64[0].dtype
     e = tuple(h.to(up) + l.to(up) for h, l in zip(e_hi, e_lo))
@@ -651,10 +729,11 @@ def _use_cycle_graph(var):
     uncaptured), ``auto`` on CUDA, ``0`` never.  Never at ``verb > 3``:
     the cycle-QC trace (``var.level_all``) is written by the
     per-operation cycle only (the JAX package turns ``auto`` off there
-    for the same reason).
+    for the same reason).  Never under a grid placement, as in the JAX
+    package: the pieces' halo copies run between the level operations.
     """
     mode = os.environ.get('EMG3D_TPU_CYCLE_JIT', 'auto')
-    if var.verb > 3:
+    if var.verb > 3 or var.placement is not None:
         return False
     if mode == '1':
         return True
@@ -913,8 +992,8 @@ def multigrid(model, sfield, efield, var):
     meta, levels = hier.get(var.sc_dir, var.lr_dir)
     wdt = hier.dtypes[0]
 
-    s = _field_to_dev(sfield, var.device, wdt)
-    e_hi = _field_to_dev(efield, var.device, wdt)
+    s = hier.to_dev(sfield, wdt)
+    e_hi = hier.to_dev(efield, wdt)
     e_lo = tuple(torch.zeros_like(c) for c in e_hi)
 
     r, l2 = _residual_norm_split(e_hi, e_lo, s, levels[0])
@@ -1020,12 +1099,14 @@ def krylov(model, sfield, efield, var):
     runs in the working precision from a zero guess.
     """
     hier = _Hierarchies(model, var)
-    ops64 = hier.get(var.sc_dir, var.lr_dir)[1][0].ops64
-    hdt = ops64[0].dtype
+    lvl0 = hier.get(var.sc_dir, var.lr_dir)[1][0]
+    hdt = _host_dtypes(model)[0]
     wdt = hier.dtypes[0]
 
     def amatvec(e):
-        return operator.amat_x(*e, *ops64)
+        if lvl0.sharded:
+            return lvl0.amat(e)
+        return operator.amat_x(*e, *lvl0.ops64)
 
     graph = _use_cycle_graph(var)
     cfg_key = _cycle_cfg_key(var)
@@ -1039,7 +1120,7 @@ def krylov(model, sfield, efield, var):
         """
         r = tuple(c.to(wdt) for c in s)
         if graph:
-            state = _cycle_state(r, ops64)
+            state = _cycle_state(r, lvl0.ops64)
             state.start(s, r)
             e_hi, e_lo = state.e_hi, state.e_lo
         else:
@@ -1100,8 +1181,8 @@ def krylov(model, sfield, efield, var):
                 f"   [{var.time.now}]   {var.l2/var.l2_refe:.3e} "
                 f" after {var.ssl_it:3} {var.sslsolver}-cycles", 3)
 
-    s = _field_to_dev(sfield, var.device, hdt)
-    e = _field_to_dev(efield, var.device, hdt)
+    s = hier.to_dev(sfield, hdt)
+    e = hier.to_dev(efield, hdt)
 
     native = {'bicgstab': _bicgstab, 'cgs': _cgs,
               'gcrotmk': _gcrotmk}[var.sslsolver]
@@ -1129,13 +1210,22 @@ def krylov(model, sfield, efield, var):
 
 def _dot(a, b):
     """Conjugated inner product over field tuples (complex, or float for
-    real tensors)."""
-    val = sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b))
+    real tensors); over owned entries of sharded fields."""
+    if isinstance(a[0], torch.Tensor):
+        val = sum(torch.vdot(x.reshape(-1), y.reshape(-1))
+                  for x, y in zip(a, b))
+    else:
+        dev = a[0].layout.devices()[0]
+        val = sum(x.vdot(y, dev) for x, y in zip(a, b))
     return complex(val) if a[0].is_complex() else float(val)
 
 
 def _norm_tup(a):
-    return float(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2) for x in a)))
+    if isinstance(a[0], torch.Tensor):
+        return float(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2)
+                                    for x in a)))
+    dev = a[0].layout.devices()[0]
+    return float(torch.sqrt(sum(x.sqsum(dev) for x in a)))
 
 
 def _axpy(a, alpha, b):
@@ -1581,6 +1671,7 @@ class MGParameters:
         self.error_at_cycle = np.array([0.])
         self.do_return = True
         self.device = config.resolve_device(self.device)
+        self.placement = None   # GridPlacement of a grid-sharded solve
 
         self._semicoarsening()
         self._linerelaxation()

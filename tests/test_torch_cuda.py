@@ -18,7 +18,10 @@ single launches on ``scale[k] * eta`` built by PyTorch.  The survey
 layer on the card is held against the CPU path in complex128:
 ``get_magnetic_field`` to 1e-12, the gradient of a 16^3 ``Simulation``
 to 1e-8 of the largest entry, and ``solve_batch`` at 16^3 with the same
-iterations and fields to 1e-10.
+iterations and fields to 1e-10.  The multi-device layer on four mesh
+entries of ``cuda:0``: a 32^3 grid-sharded solve equals the unsharded one
+(plain F-cycles bit for bit, the default solver to 1e-12 in complex128),
+and a batch over a task mesh equals the unsharded batch to 1e-12.
 """
 
 import itertools
@@ -588,3 +591,66 @@ def test_cli_card_equals_cpu(cuda, tmp_path):
         a, b = (np.asarray(outs[d][key]) for d in ('cuda', 'cpu'))
         assert np.all(np.isfinite(a)) and np.abs(b).max() > 0, key
         assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), key
+
+
+# --------------------------------------------------------------------------
+# The multi-device layer on one card: four mesh entries on cuda:0.
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('opts', [dict(plain=True, cycle='F'), {}])
+def test_grid_sharded_solve_on_card(cuda, opts, monkeypatch):
+    """A 32^3 solve over a 2 x 2 grid mesh of ``cuda:0`` entries equals
+    the unsharded per-operation solve: plain F-cycles bit for bit, the
+    default solver in the same iterations to 1e-12 (complex128); both
+    kernels run on the pieces, no plain version on CUDA."""
+    import emg3d_tpu_torch as t3
+    from emg3d_tpu_torch.parallel import domain
+
+    _, model = _survey(32)
+    sfield = t3.get_source_field(model.grid, (0., 0., 0., 20., 10.), 1.0)
+    kw = dict(tol=1e-6, return_info=True, dtype=torch.complex128, **opts)
+    monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', '0')
+    one, i_one = t3.solve(model, sfield, **kw)
+    before = _counts()
+    mesh = domain.make_grid_mesh(devices=['cuda:0'] * 4)
+    sh, i_sh = t3.solve(model, sfield, mesh=mesh, **kw)
+    after = _counts()
+    assert after[0] > before[0] and after[1] == before[1] == 0
+    assert after[3] == before[3] == 0
+    if not opts:
+        assert after[2] > before[2]
+    assert (i_sh['it_mg'], i_sh['it_ssl'], i_sh['exit_message']) == (
+        i_one['it_mg'], i_one['it_ssl'], 'CONVERGED')
+    assert (np.linalg.norm(sh.field - one.field)
+            <= 1e-12 * np.linalg.norm(one.field))
+    if opts:
+        assert np.array_equal(sh.field, one.field)
+
+
+@pytest.mark.cuda
+def test_task_mesh_on_card(cuda):
+    """The production batch of 4 frequencies over 3 ``cuda:0`` entries
+    (padded to 6 lanes) equals the unsharded batch: the same iterations,
+    lanes to 1e-12; no plain version on CUDA."""
+    import emg3d_tpu_torch as t3
+    from emg3d_tpu_torch.parallel import make_task_mesh
+
+    _, model = _survey(32)
+    sources = [(0., 0., 0., 20., 10.)] * 4
+    freqs = [0.25, 0.5, 1.0, 2.0]
+    opts = dict(sslsolver=True, semicoarsening=True, linerelaxation=True,
+                tol=1e-6)
+    one, i_one = t3.solve_batch(model, sources, freqs, **opts)
+    before = _counts()
+    mesh = make_task_mesh(devices=['cuda:0'] * 3)
+    sh, i_sh = t3.solve_batch(model, sources, freqs, mesh=mesh, **opts)
+    after = _counts()
+    assert after[0] > before[0] and after[2] > before[2]
+    assert after[1] == after[3] == 0
+    assert (i_sh['it_mg'], i_sh['it_ssl']) == (i_one['it_mg'],
+                                               i_one['it_ssl'])
+    assert i_sh['exit_messages'] == ['CONVERGED'] * 4
+    for a, b in zip(sh, one):
+        assert (np.linalg.norm(a.field - b.field)
+                <= 1e-12 * np.linalg.norm(b.field))
