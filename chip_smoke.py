@@ -13,11 +13,13 @@ Phases (any failure raises, and the script exits non-zero):
    its first solve: the 32^3 triaxial problem with the default solver,
    every cycle a whole-cycle CUDA graph (``EMG3D_TPU_CYCLE_JIT`` unset,
    so ``auto``); it must converge with captures and replays.
-3. The level shapes of the main paths (6 and 18 below), read from the
-   hierarchies the solver builds for them: every level whose effective
-   line-relaxation direction is 0 runs ``gs_phase``, every other level
-   ``line_phase`` along the axes that direction names.  The Laplace
-   path (17) runs the real instantiations, the others the complex ones.
+3. The level shapes of the main paths (6 and 18 below) and of the
+   multi-grid survey (20: one grid of each shape, with and without shape
+   classes), read from the hierarchies the solver builds for them: every
+   level whose effective line-relaxation direction is 0 runs
+   ``gs_phase``, every other level ``line_phase`` along the axes that
+   direction names.  The Laplace path (18) runs the real
+   instantiations, the others the complex ones.
 4. ``gs_phase`` against its plain PyTorch version on the card, on every
    ``gs_phase`` shape of the complex main paths and a stretched odd
    shape in complex128 (to 1e-12) and complex64 (to 1e-5), and on every
@@ -32,11 +34,15 @@ Phases (any failure raises, and the script exits non-zero):
    complex128 to 1e-12 and complex64 to 1e-6, four times the error
    measured, so that a lost digit shows; the same in float64 and
    float32, to the same tolerances, on the Laplace path's level shapes
-   (all three axes) and the odd shape.
+   (all three axes) and the odd shape; and every colour, complex128 and
+   complex64, on the level shapes only the multi-grid survey gives (20),
+   along the axes it relaxes there.
    The plain version is bound by its host (some 16,000 launches per
-   phase), so the shapes are shared out over worker processes, which end
-   with the phase.  Then per-phase times at 128^3 and 64^3, with the host
-   time of the wrapper alone.
+   phase), so the shapes are shared out over worker processes, started
+   once every timed kernel phase is done (the per-phase times of 4, 5
+   and 11) and running beside the later phases; the script waits for
+   them at its end.  Per-phase times at 128^3 and 64^3, with the host
+   time of the wrapper alone, are taken before.
 6. The main paths (``emg3d_tpu_torch.northstar``), each driven through
    ``emg3d_tpu_torch.solve`` with both launch counts set to 0 just
    before it and read just after:
@@ -127,7 +133,7 @@ The batch engine (``emg3d_tpu_torch.parallel.batch``):
     12's unsharded batch to 1e-12 with the same iterations; peak memory
     per device.  Last ``parallel.dryrun_multichip(len(E), devices=E)``.
     Both kernels launched on pieces, no plain call on CUDA.
-14. The salt survey through both engines at 64^3 (8 sources, so 8
+14. The salt survey through both engines at 64^3 (4 sources, so 4
     lanes), on one set of observed data: at tol 1e-9 in complex128 the
     synthetic data, misfit, gradient and ``jvec`` of ``parallel='batch'``
     equal those of ``parallel='task'`` to 1e-5; at tol 1e-6 the batch
@@ -186,11 +192,43 @@ the examples:
 19. The three ``examples/torch_*.py`` as processes of their own on the
     card, started together: each exits 0 and prints its result.
 
+A survey on automatically built grids, and the Krylov variants:
+
+20. ``salt_128_frequency_gridding``: the salt model of phase 8 on its
+    128^3 grid, 2 x-directed sources (x = -1500 and 1500 m), 6 of the
+    12 receivers of the line y = +500 m, 6 frequencies from 0.05 to 12 Hz,
+    ``gridding='frequency'`` with ``GRIDDING_OPTS`` (every chosen option
+    and grid shape printed), the default solver to tol 1e-6.  First one
+    solve on the largest grid alone (its peak memory); then the task
+    loop on whole-cycle graphs, shape classes off, from an empty step
+    cache, and the batch engine with shape classes (growth 1.35), each
+    ``compute`` (seeded noise) and then ``misfit`` and ``gradient``, the
+    counts set to 0 just before each engine and read just after.  Every
+    task converges below 1e-6; stage times, solves, the share outside
+    them, ``it_ssl``/``it_mg`` per task and grid shape, captures and
+    replays; the running peak after each grid's first and last task (a
+    grid's tasks follow each other), which may grow by
+    ``MEMORY_GROWTH`` at most over a grid's tasks and from the forward
+    stage to the gradient stage; the step cache's states and level
+    stores are those its steps hold.  Then at the small recipe of
+    tests/test_simulations.py::TestAutoGridding (0.5, 1 and 2 Hz),
+    shape classes off and at 1.7: the batch engine against the task loop
+    on the card (default solver, tol 1e-10) and the card against the CPU
+    (plain V-cycles, tol 1e-6, the same ``it_mg``; the CPU side in two
+    worker processes during the survey), data, misfit and gradient to
+    1e-8 of the largest entry.
+21. ``[krylov variants]`` (right after phase 6): the 128^3 triaxial
+    problem with ``sslsolver='cgs'`` and ``'gcrotmk'``, each solved
+    twice on graphs from an empty step cache, beside phase 6's warm
+    BiCGSTAB; then the 16^3 stretched triaxial grid in complex128, card
+    against CPU (the same ``it_ssl`` and ``it_mg``, fields to 1e-10).
+
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import gc
 import importlib.util
 import itertools
 import json
@@ -282,16 +320,22 @@ def path_levels(problem, options):
     return shapes, gs, line
 
 
-def phase_path_levels(problems):
-    """The kernels' shapes on the main paths, to hold against the plain
-    versions: ({shape} of ``gs_phase``, {shape: axes} of ``line_phase``)
-    for the complex instantiations, and the same for the real ones (the
-    Laplace-domain path).  The odd shape (37, 50, 29) is in all four."""
+def phase_path_levels(problems, gridding_problems):
+    """The kernels' shapes on the main paths and on the multi-grid survey
+    (``gridding_problems``: {label: problem} on each grid shape of
+    ``salt_128_frequency_gridding``, the default solver), to hold against
+    the plain versions: ({shape} of ``gs_phase``, {shape: axes} of
+    ``line_phase``) for the complex instantiations, and the same for the
+    real ones (the Laplace-domain path); last the {shape: axes} of
+    ``line_phase`` that only the multi-grid survey gives (checked colour
+    by colour, without the sweeps).  The odd shape (37, 50, 29) is in the
+    first four."""
     from emg3d_tpu_torch import northstar
 
     odd = (37, 50, 29)
     gs, line = {odd}, {odd: {0, 1, 2}}
     real_gs, real_line = {odd}, {odd: {0, 1, 2}}
+    gridding_line = {}
     for case, problem in problems.items():
         shapes, p_gs, p_line = path_levels(
             problem, northstar.SOLVE_OPTIONS[case])
@@ -307,12 +351,25 @@ def phase_path_levels(problems):
             # Every level shape of the default solve: all three axes.
             for shape in shapes:
                 c_line.setdefault(shape, set()).update((0, 1, 2))
-    check(gs and line and len(real_gs) > 1 and len(real_line) > 1,
-          "no kernel on the main paths")
+    for label, problem in gridding_problems.items():
+        _, p_gs, p_line = path_levels(problem, {})
+        log(f"[levels] salt_128_frequency_gridding {label} "
+            f"{problem[0].shape}: gs_phase on {sorted(p_gs)}; line_phase on "
+            f"{sorted((s, sorted(a)) for s, a in p_line.items())}")
+        gs |= p_gs
+        for shape, axes in p_line.items():
+            gridding_line.setdefault(shape, set()).update(axes)
+    gridding_line = {s: a - line.get(s, set())
+                     for s, a in gridding_line.items()}
+    gridding_line = {s: a for s, a in gridding_line.items() if a}
+    check(gs and line and len(real_gs) > 1 and len(real_line) > 1
+          and gridding_line, "no kernel on the main paths")
     bysize = dict(key=lambda s: (-int(np.prod(s)), s))
-    return tuple((sorted(g, **bysize),
-                  {s: sorted(ln[s]) for s in sorted(ln, **bysize)})
-                 for g, ln in ((gs, line), (real_gs, real_line)))
+    return (*(
+        (sorted(g, **bysize), {s: sorted(ln[s]) for s in sorted(ln, **bysize)})
+        for g, ln in ((gs, line), (real_gs, real_line))),
+        {s: sorted(gridding_line[s]) for s in sorted(gridding_line,
+                                                     **bysize)})
 
 
 def operands(shape, dtype, rdt, seed):
@@ -589,16 +646,18 @@ def _line_compare(plain, kernel, base, steps, tol, what):
 # parent want the rest of the 8 cores of a one-card host.  Measured on
 # such a host with an H100: the 36 complex shapes took 340 s in one
 # process, 89-96 s in 4 workers and 80.6 s in 6; with the 20 real jobs
-# of the Laplace path, 117.9 s in 6.
+# of the Laplace path, 117.9 s in 6; with the 85 colour-by-colour jobs
+# of the multi-grid survey the phase took 214.7-307.3 s in 6 (since
+# then the checks run beside the later phases).
 LINE_WORKERS = 6
 
 
 def line_check_shapes(jobs):
-    """Hold ``line_phase`` against its plain version, every colour and two
-    full sweeps per axis, on ``jobs`` ([(shape, axes, "complex" or
-    "real")], the dtypes of ``LINE_CASES``); runs in a worker process or
-    in the caller's.  Returns ({dtype name: worst norm-wise error}, the
-    largest absolute error in single precision)."""
+    """Hold ``line_phase`` against its plain version, every colour and,
+    where ``sweep``, two full sweeps per axis, on ``jobs`` ([(shape, axes,
+    "complex" or "real", sweep)], the dtypes of ``LINE_CASES``); runs in
+    a worker process or in the caller's.  Returns ({dtype name: worst
+    norm-wise error}, the largest absolute error in single precision)."""
     from emg3d_tpu_torch.ops import smoothers
 
     plain = smoothers._line_relax_phase_torch
@@ -607,7 +666,7 @@ def line_check_shapes(jobs):
     worst = {}
     max_abs = 0.0
     t0 = time.perf_counter()
-    for shape, axes, kind in jobs:
+    for shape, axes, kind, sweep in jobs:
         for dtype, rdt, tol in LINE_CASES[kind]:
             base = operands(shape, dtype, rdt, seed=sum(shape) + 1)
             for axis in axes:
@@ -618,51 +677,78 @@ def line_check_shapes(jobs):
                     worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
                     if dtype in SINGLE:
                         max_abs = max(max_abs, mabs)
-                sweep = [(*c, axis) for rev in (False, True)
-                         for c in colors(shape, axis, rev)]
-                err, _ = _line_compare(plain, kernel, base, sweep, tol,
-                                       (shape, dtype, axis, "sweep"))
-                worst[str(dtype)] = max(worst[str(dtype)], err)
-        log(f"[line_phase] {shape} {kind} axes {axes}: all colors and sweeps "
-            f"agree (worst of this worker so far "
+                if sweep:
+                    steps = [(*c, axis) for rev in (False, True)
+                             for c in colors(shape, axis, rev)]
+                    err, _ = _line_compare(plain, kernel, base, steps, tol,
+                                           (shape, dtype, axis, "sweep"))
+                    worst[str(dtype)] = max(worst[str(dtype)], err)
+        log(f"[line_phase] {shape} {kind} axes {axes}: all colors "
+            f"{'and sweeps ' if sweep else ''}agree (worst of this worker "
+            f"so far "
             f"{({k: f'{v:.2e}' for k, v in worst.items()})}; "
             f"{time.perf_counter() - t0:.1f} s)")
     return worst, max_abs
 
 
-def phase_line_vs_plain(shapes, real_shapes):
-    """``shapes``, ``real_shapes``: {shape: the axes to check there} in
-    complex128/complex64 and in float64/float32.  Returns as
-    ``phase_gs_vs_plain``."""
+def start_line_checks(shapes, real_shapes, colour_shapes):
+    """Start holding ``line_phase`` against its plain version in
+    ``LINE_WORKERS`` worker processes, which run beside the later phases
+    (the plain version is bound by its host, the card has room):
+    ``shapes``, ``real_shapes``: {shape: the axes to check there} in
+    complex128/complex64 and in float64/float32, every colour and two
+    sweeps; ``colour_shapes``: the same in complex128/complex64, every
+    colour (the multi-grid survey's level shapes: the sweeps run the same
+    phases in turn, held on the other shapes, and would take three times
+    as long).  Returns the handle ``finish_line_checks`` takes."""
     import multiprocessing
 
+    log(f"[line_phase] {len(shapes)} shapes complex, {len(real_shapes)} "
+        f"real, {len(colour_shapes)} complex colour by colour: "
+        f"{[(s, a) for s, a in shapes.items()]}; "
+        f"{[(s, a) for s, a in real_shapes.items()]}; "
+        f"{[(s, a) for s, a in colour_shapes.items()]}")
+    # Deal the jobs (largest first) round the workers: the cost of the
+    # plain version follows the length and number of a shape's lines.
+    jobs = sorted([(s, a, "complex", True) for s, a in shapes.items()]
+                  + [(s, a, "real", True) for s, a in real_shapes.items()]
+                  + [(s, a, "complex", False)
+                     for s, a in colour_shapes.items()],
+                  key=lambda j: (-int(np.prod(j[0])) * len(j[1])
+                                 * (3 if j[3] else 1), j[2], j[0]))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        LINE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(line_check_shapes, jobs[i::LINE_WORKERS])
+               for i in range(LINE_WORKERS)]
+    return pool, futures, len(jobs), time.perf_counter()
+
+
+def finish_line_checks(handle):
+    """Wait for ``start_line_checks``'s workers and end them; check that
+    every job agreed.  Returns the largest absolute error in single
+    precision."""
+    pool, futures, njobs, t0 = handle
+    with pool:
+        results = [f.result() for f in futures]
+    worst = {k: max(r[0].get(k, 0.0) for r in results)
+             for k in set().union(*(r[0] for r in results))}
+    log(f"[line_phase] all {njobs} jobs agree: worst "
+        f"{({k: f'{v:.2e}' for k, v in sorted(worst.items())})} "
+        f"({LINE_WORKERS} worker processes, {time.perf_counter() - t0:.1f} "
+        f"s from their start)")
+    check(len(worst) == 4, worst)
+    return max(r[1] for r in results)
+
+
+def line_phase_times():
+    """Per-phase times of ``line_phase`` and its plain version at 128^3
+    and 64^3, every axis, with the wrapper's host time.  Returns ((kernel,
+    plain) ms of one 128^3 phase along axis 0, (bound ms, what bounds
+    it))."""
     from emg3d_tpu_torch.ops import smoothers
 
     plain = smoothers._line_relax_phase_torch
     kernel = smoothers.gauss_seidel_line_phase
-    log(f"[line_phase] {len(shapes)} shapes complex, {len(real_shapes)} "
-        f"real: {[(s, a) for s, a in shapes.items()]}; "
-        f"{[(s, a) for s, a in real_shapes.items()]}")
-    # Deal the jobs (largest first) round the workers: the cost of the
-    # plain version follows the length and number of a shape's lines.
-    jobs = sorted([(s, a, "complex") for s, a in shapes.items()]
-                  + [(s, a, "real") for s, a in real_shapes.items()],
-                  key=lambda j: (-int(np.prod(j[0])) * len(j[1]), j[2], j[0]))
-    chunks = [jobs[i::LINE_WORKERS] for i in range(LINE_WORKERS)]
-    t0 = time.perf_counter()
-    with concurrent.futures.ProcessPoolExecutor(
-            LINE_WORKERS,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        results = list(pool.map(line_check_shapes, chunks))
-    worst = {k: max(r[0].get(k, 0.0) for r in results)
-             for k in set().union(*(r[0] for r in results))}
-    max_abs = max(r[1] for r in results)
-    log(f"[line_phase] all {len(jobs)} jobs agree: worst "
-        f"{({k: f'{v:.2e}' for k, v in sorted(worst.items())})} "
-        f"({LINE_WORKERS} worker processes, "
-        f"{time.perf_counter() - t0:.1f} s)")
-    check(len(worst) == 4, worst)
-
     times, bound = {}, None
     for n in (128, 64):
         args = operands((n, n, n), torch.complex64, torch.float32, seed=n)
@@ -682,7 +768,7 @@ def phase_line_vs_plain(shapes, real_shapes):
             if n == 128 and axis == 0:
                 times = (k_dev or k_ev, p_dev or p_ev)
                 bound = (b_ms, b_by)
-    return max_abs, times, bound
+    return times, bound
 
 
 # ---------------------------------------------------------------------------
@@ -1065,10 +1151,11 @@ def phase_main_paths(problems):
         "marine_sclr_128x128x64": drive_modes(
             "marine sc+lr F-cycles", problems["marine"], ["line_phase"],
             tol=1e-6, **opts["marine"])}
+    bicgstab = paths["triaxial_default_128"]["graph again"]
     refs = {k: v["per-operation"] for k, v in paths.items()}
     paths = {k: v["launches"] for k, v in refs.items()}
     check(paths["baseline_plain_128"]["line_phase"] == 0, paths)
-    return paths, refs
+    return paths, refs, bicgstab
 
 
 def phase_fresh_graph_solve():
@@ -1666,7 +1753,7 @@ def survey_tolerance_witness(n=64, nsrc=8):
 # datum)^2) are far below that, and misfit, gradient and jvec weigh them
 # most.  ``survey_tolerance_witness`` shows this at 64^3, where the task
 # loop at 1e-6 lies as far from its tight answer, and holds the two
-# engines, 8 lanes, to 1e-5 where both solve to 1e-9: the check that
+# engines, 4 lanes, to 1e-5 where both solve to 1e-9: the check that
 # catches a fault of the engine these loose limits would let pass.
 SURVEY_BATCH_LIMITS = {"synthetic": 1e-4, "misfit": 0.064, "gradient": 0.38,
                        "jvec": 0.024}
@@ -1681,7 +1768,7 @@ def phase_survey_batch(ref, n=128, nsrc=8):
     Returns {kernel: launches} of the ``n``^3 run."""
     from emg3d_tpu_torch import Simulation, northstar
 
-    survey_tolerance_witness()
+    survey_tolerance_witness(nsrc=4)
     survey, model, kw = northstar.salt_survey(n, nsrc)
     kw.update(tqdm_opts=False, parallel='batch',
               solver_opts={'tol': 1e-6, **PRODUCTION})
@@ -2320,29 +2407,575 @@ def phase_examples():
             proc.kill()
 
 
+# ---------------------------------------------------------------------------
+# The Krylov variants on the card.
+# ---------------------------------------------------------------------------
+
+KRYLOV_VARIANTS = ("cgs", "gcrotmk")
+KRYLOV_PARITY = dict(tol=1e-6, return_info=True, dtype=torch.complex128)
+
+
+def cpu_krylov(ssl):
+    """The 16^3 stretched triaxial default solve with ``sslsolver=ssl``
+    on the CPU in complex128 (in a worker process): (field, info,
+    seconds)."""
+    from emg3d_tpu_torch import solve
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    efield, info = solve(*stretched_triaxial(16, 16), device='cpu',
+                         sslsolver=ssl, **KRYLOV_PARITY)
+    return (np.asarray(efield.field),
+            {k: info[k] for k in ("exit", "exit_message", "it_ssl",
+                                  "it_mg")},
+            time.perf_counter() - t0)
+
+
+def phase_krylov_variants(problem, bicgstab):
+    """CGS and GCROT(m,k) as the default solver's Krylov method on the
+    128^3 triaxial problem, each solved twice with whole-cycle graphs (the
+    first from an empty step cache, so it captures: the steps are the
+    preconditioner's cycles, which BiCGSTAB's solves share), beside
+    ``bicgstab``, the warm graph run of the main path's BiCGSTAB.  Every
+    run converges below 1e-6 through both kernels.  Then the 16^3
+    stretched triaxial grid in complex128, card against CPU (the CPU
+    solves in worker processes, started first): the same exit message,
+    ``it_ssl`` and ``it_mg``, fields to 1e-10.  Returns {path: {kernel:
+    launches through the wrappers}} of each first solve."""
+    import multiprocessing
+
+    from emg3d_tpu_torch import solve
+
+    with concurrent.futures.ProcessPoolExecutor(
+            len(KRYLOV_VARIANTS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {ssl: pool.submit(cpu_krylov, ssl) for ssl in KRYLOV_VARIANTS}
+        paths = krylov_variants_128(problem, bicgstab)
+        model, sfield = stretched_triaxial(16, 16)
+        for ssl in KRYLOV_VARIANTS:
+            t0 = time.perf_counter()
+            ef_gpu, inf_gpu = solve(model, sfield, device='cuda',
+                                    sslsolver=ssl, **KRYLOV_PARITY)
+            t1 = time.perf_counter()
+            field_cpu, inf_cpu, t_cpu = cpu[ssl].result()
+            err = rel_err(torch.from_numpy(np.asarray(ef_gpu.field)),
+                          torch.from_numpy(field_cpu))
+            log(f"[krylov parity] 16^3 stretched triaxial complex128, "
+                f"sslsolver={ssl!r}: card it_ssl {inf_gpu['it_ssl']} it_mg "
+                f"{inf_gpu['it_mg']} ({t1 - t0:.2f} s), cpu it_ssl "
+                f"{inf_cpu['it_ssl']} it_mg {inf_cpu['it_mg']} ({t_cpu:.2f} "
+                f"s, a worker process), field rel diff {err:.2e}")
+            check(inf_gpu['exit'] == 0 and inf_cpu['exit'] == 0, ssl)
+            for key in ("exit_message", "it_ssl", "it_mg"):
+                check(inf_gpu[key] == inf_cpu[key],
+                      (ssl, key, inf_gpu[key], inf_cpu[key]))
+            check(err <= 1e-10, (ssl, err))
+    return paths
+
+
+def krylov_variants_128(problem, bicgstab):
+    """The 128^3 part of ``phase_krylov_variants``."""
+    from emg3d_tpu_torch import solver
+
+    paths, rows = {}, {"bicgstab": ("graph again", bicgstab)}
+    for ssl in KRYLOV_VARIANTS:
+        solver._STEPS.clear()
+        first = drive(f"triaxial default solver, sslsolver={ssl!r} [graph]",
+                      problem, ["gs_phase", "line_phase"], tol=1e-6,
+                      sslsolver=ssl)
+        warm = drive(f"triaxial default solver, sslsolver={ssl!r} [graph "
+                     f"again]", problem, ["gs_phase", "line_phase"],
+                     tol=1e-6, sslsolver=ssl)
+        check(first["captures"] > 0 and warm["captures"] == 0, ssl)
+        paths[f"krylov_{ssl}_triaxial_128"] = first["launches"]
+        rows[ssl] = ("graph", first)
+        rows[f"{ssl} again"] = ("graph again", warm)
+    log("[krylov variants] triaxial 128^3, default solver to tol 1e-6: "
+        + "; ".join(
+            f"{name} ({kind}): exit {r['info']['exit']} "
+            f"{r['info']['exit_message']}, it_ssl {r['info']['it_ssl']}, "
+            f"it_mg {r['info']['it_mg']}, rel_error "
+            f"{r['info']['rel_error']!r}, {r['seconds']!r} s, peak "
+            f"{r['peak']} B" for name, (kind, r) in rows.items()))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# salt_128_frequency_gridding: a multi-frequency survey whose tasks solve
+# on automatically built grids (gridding='frequency').
+# ---------------------------------------------------------------------------
+
+# Six frequencies from 0.05 to 12 Hz (tools/bench_shape_classes.py:51).
+GRIDDING_FREQUENCIES = tuple(
+    float(f) for f in np.logspace(np.log10(0.05), np.log10(12.0), 6))
+# The options of the automatic gridding (``meshes.construct_mesh``): the
+# survey domain holds the sources, the receivers and the salt's upper
+# half, down to 4 km; cells there between the model's 62.5 m and 125 m,
+# stretched at most 1.3 times per cell in the buffer; centred on the
+# sources' line.  On the 128^3 salt model the largest grid has 1,966,080
+# cells and the smallest 491,520 (64^3 has 262,144).
+GRIDDING_OPTS = {"domain": ([-4000.0, 4000.0], [-2500.0, 2500.0],
+                            [-4000.0, 0.0]),
+                 "min_width_limits": (62.5, 125.0),
+                 "stretching": (1.0, 1.3), "center": (0.0, 0.0, -30.0)}
+# The batch stage's shape classes: True is the growth bound 1.35.
+GRIDDING_CLASSES = True
+# The peak of a stage may exceed the peak of the visits before it by this
+# factor at most.
+MEMORY_GROWTH = 1.1
+
+
+def gridding_survey(n=128):
+    """salt_128_frequency_gridding at ``n``^3: the salt model on its own
+    ``n``^3 grid of the 8 km cube (``northstar.salt_model``); 2
+    x-directed sources on y = 0 at z = -30 m, x = -1500 and 1500 m; every
+    second of the 12 receivers of the salt survey's line y = +500 m (6:
+    the adjoint source fields, one per receiver and task, built on the
+    host, are most of the gradient stage); the frequencies of
+    ``GRIDDING_FREQUENCIES``; 3 % relative error, noise floor 1e-16.
+    Returns (survey, model)."""
+    from emg3d_tpu_torch import (RxElectricPoint, Survey, TxElectricPoint,
+                                 northstar)
+
+    model = northstar.salt_survey(n, 1)[1]
+    survey = Survey(
+        sources=[TxElectricPoint((x, 0.0, -30.0, 0.0, 0.0))
+                 for x in (-1500.0, 1500.0)],
+        receivers=[RxElectricPoint((x, 500.0, -100.0, 0.0, 0.0))
+                   for x in np.linspace(-3500.0, 3500.0, 12)[::2]],
+        frequencies=list(GRIDDING_FREQUENCIES), noise_floor=1e-16,
+        relative_error=0.03)
+    return survey, model
+
+
+def gridding_kw(shape_classes, parallel="task"):
+    """The ``Simulation`` keywords of salt_128_frequency_gridding: the
+    default solver to tol 1e-6, given in full (``PRODUCTION``: the batch
+    engine's defaults are plain multigrid), linear receiver interpolation
+    (an exact gradient)."""
+    return dict(gridding="frequency", gridding_opts=dict(GRIDDING_OPTS),
+                shape_classes=shape_classes, parallel=parallel,
+                receiver_interpolation="linear", verb=-1, tqdm_opts=False,
+                solver_opts={"tol": 1e-6, **PRODUCTION})
+
+
+def gridding_problems(n=128):
+    """The grids of salt_128_frequency_gridding without and with shape
+    classes (every chosen option and every grid's shape printed), and
+    {label: (model, source field)} on one grid of each shape: the
+    problems whose hierarchies give the level shapes of the path."""
+    from emg3d_tpu_torch import Simulation
+
+    survey, model = gridding_survey(n)
+    src = next(iter(survey.sources))
+    problems = {}
+    for classes in (False, GRIDDING_CLASSES):
+        sim = Simulation(survey, model, **gridding_kw(classes))
+        rows = []
+        for f, freq in survey.frequencies.items():
+            grid = sim.get_grid(src, f)
+            rows.append(f"{freq:.4g} Hz {grid.shape_cells} "
+                        f"{grid.n_cells} cells, widths "
+                        f"{min(min(h) for h in grid.h):.1f}-"
+                        f"{max(max(h) for h in grid.h):.1f} m")
+            shape = grid.shape_cells
+            if not any(m.shape == shape for m, _ in problems.values()):
+                problems[f"{shape} ({freq:.4g} Hz)"] = (
+                    sim.get_model(src, f),
+                    survey.sources[src].get_field(grid, freq))
+        log(f"[gridding] shape_classes={classes!r}: options "
+            f"{sim.gridding_opts}; grids: " + "; ".join(rows))
+    return problems
+
+
+def step_cache_bytes():
+    """Bytes of the device tensors that the whole-cycle step cache's
+    states and level stores hold."""
+    from emg3d_tpu_torch import solver
+
+    parts = [(st.e_hi, st.e_lo, st.r, st.s, st.l2)
+             for st in solver._STATES.values()]
+    parts += [(lvl.ops, lvl.rw, lvl.pm, lvl.ops64)
+              for store in solver._STORES.values() for lvl in store.levels]
+    return sum({t.data_ptr(): t.nbytes
+                for t in solver._leaves(parts)}.values())
+
+
+def task_rows(rows):
+    """A context in which every task of a task loop
+    (``parallel.tasks.solve``) appends (kind, grid shape, grid identity,
+    running ``max_memory_allocated``, ``memory_allocated``, the bytes the
+    step cache holds, info) to ``rows``."""
+    import contextlib
+
+    from emg3d_tpu_torch.parallel import tasks
+
+    @contextlib.contextmanager
+    def ctx():
+        inner = tasks.solve
+
+        def solve(inp):
+            out = inner(inp)
+            torch.cuda.synchronize()
+            kind, grid = (("bfield", inp["sfield"].grid) if "sfield" in inp
+                          else ("efield", inp["grid"]))
+            rows.append((kind, grid.shape_cells, id(grid),
+                         torch.cuda.max_memory_allocated(),
+                         torch.cuda.memory_allocated(), step_cache_bytes(),
+                         out[1]))
+            return out
+
+        tasks.solve = solve
+        try:
+            yield rows
+        finally:
+            tasks.solve = inner
+    return ctx()
+
+
+def gridding_stage(name, nsolves, fn, stages, rows=None):
+    """Run ``fn`` as one stage of the survey: peak memory from a reset
+    at its start, wall time, time inside the solves (``nsolves`` of
+    them), per task the running peak where ``rows`` (a list) is given."""
+    import contextlib
+
+    from emg3d_tpu_torch import northstar
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = 0 if rows is None else len(rows)
+    ctx = contextlib.nullcontext() if rows is None else task_rows(rows)
+    with northstar.timed_solves() as inside, ctx:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    check(len(inside) == nsolves, (name, len(inside), nsolves))
+    peak = torch.cuda.max_memory_allocated()
+    stages[name] = {"seconds": dt, "inside": sum(inside), "peak": peak,
+                    "reserved": torch.cuda.max_memory_reserved(),
+                    "rows": [] if rows is None else rows[first:]}
+    log(f"[gridding] {name}: {dt!r} s for {nsolves} solves; {sum(inside)!r}"
+        f" s inside them ({[round(s, 3) for s in inside]}), "
+        f"{100 * (1 - sum(inside) / dt):.1f} % outside; "
+        f"max_memory_allocated {peak} B (reserved "
+        f"{stages[name]['reserved']} B)")
+    return out
+
+
+def task_iterations(sim, which):
+    """Every task converged below 1e-6; returns {grid shape: [(source,
+    frequency, it_ssl, it_mg)]}."""
+    its = {}
+    check_tasks(sim, which, 1e-6)
+    for src, freq in sim._srcfreq:
+        info = sim._dict_get(f"{which}_info", src, freq)
+        shape = sim.get_grid(src, freq).shape_cells
+        its.setdefault(shape, []).append((src, freq, info['it_ssl'],
+                                          info['it_mg']))
+    return its
+
+
+def gridding_results(sim):
+    """Finite data of the survey's shape, a positive misfit and a finite
+    gradient on the model's grid that is not zero."""
+    data = np.asarray(sim.data.synthetic)
+    check(data.shape == sim.survey.shape and np.all(np.isfinite(data)),
+          "synthetic")
+    check(np.isfinite(sim.misfit) and sim.misfit > 0, sim.misfit)
+    grad = sim.gradient
+    check(grad.shape == sim.model.shape, grad.shape)
+    check(np.all(np.isfinite(grad)) and np.abs(grad).max() > 0, "gradient")
+    return {"synthetic": data.copy(), "misfit": sim.misfit,
+            "gradient": grad.copy()}
+
+
+def gridding_engine(label, survey, model, shape_classes, parallel,
+                    kernels):
+    """One engine on salt_128_frequency_gridding: ``compute`` (synthetic
+    data with seeded noise become the observed data), then ``misfit``
+    and ``gradient``; both launch counts and both whole-cycle counts set
+    to 0 just before and read just after.  ``compute`` with observed
+    data leaves the simulation not computed, so ``misfit`` solves every
+    task again, from its converged field (no cycle).  ``kernels`` must
+    have been launched.  Returns (the stages, the launches through the
+    wrappers, the simulation)."""
+    from emg3d_tpu_torch import Simulation, solver
+
+    sim = Simulation(survey.copy(), model,
+                     **gridding_kw(shape_classes, parallel))
+    check(sim.device == 'cuda', sim.device)
+    grids = {sim.get_grid(*sf) for sf in sim._srcfreq}
+    batched = parallel == "batch"
+    nsolves = len(grids) if batched else len(sim._srcfreq)
+    stages, rows = {}, None if batched else []
+    kernel_counts(reset=True)
+    solver.reset_counts()
+    gridding_stage("compute", nsolves,
+                   lambda: sim.compute(observed=True,
+                                       rng=np.random.default_rng(20)),
+                   stages, rows)
+    its_f = task_iterations(sim, 'efield')
+    gridding_stage("misfit and gradient", 2 * nsolves,
+                   lambda: (sim.misfit, sim.gradient), stages, rows)
+    its_b = task_iterations(sim, 'bfield')
+    counts = kernel_counts()
+    log(f"[gridding] {label}: {len(grids)} grids of "
+        f"{len({g.shape_cells for g in grids})} shapes; (source, frequency, "
+        f"it_ssl, it_mg) per grid shape, forward {its_f}, adjoint {its_b}; "
+        f"launches through the wrappers "
+        f"{({k: c[0] for k, c in counts.items()})}, plain calls on cuda "
+        f"{({k: c[1] for k, c in counts.items()})}; cycle graphs: "
+        f"{solver.CYCLE_CAPTURES} captures, {solver.CYCLE_REPLAYS} replays")
+    for name, (launches, plain) in counts.items():
+        check(launches > 0 or name not in kernels,
+              (label, name, "not launched"))
+        check(plain == 0, (label, name, "plain calls on CUDA", plain))
+    return stages, {k: c[0] for k, c in counts.items()}, sim
+
+
+def gridding_memory(stages, single):
+    """The task loop's memory: per kind of solve (forward, adjoint) and
+    grid, the running peak after the grid's first and after its last
+    task (the loop visits a grid's tasks one after the other, one per
+    source), beside ``single``, the peak of one solve on the largest
+    grid, and after every task the memory still allocated, apart from
+    what the step cache holds.  A grid's last task may raise the peak of
+    its first by ``MEMORY_GROWTH`` at most."""
+    for name, stage in stages.items():
+        first, last = {}, {}
+        for kind, shape, gid, peak, alloc, held, _ in stage["rows"]:
+            first.setdefault((kind, gid), (shape, peak))
+            last[(kind, gid)] = (shape, peak)
+        log(f"[gridding memory] {name}: max_memory_allocated after each "
+            f"grid's first and last task "
+            f"{[(k[0], s, p, last[k][1]) for k, (s, p) in first.items()]} "
+            f"B; after each task memory_allocated less what the step "
+            f"cache holds {[r[4] - r[5] for r in stage['rows']]} B, the "
+            f"step cache {[r[5] for r in stage['rows']]} B; one solve on "
+            f"the largest grid {single} B; the stage's peak "
+            f"{stage['peak']} B ({stage['peak'] / single:.3f}x)")
+        for key, (shape, peak) in first.items():
+            check(last[key][1] <= MEMORY_GROWTH * peak,
+                  (name, key[0], shape, peak, last[key][1]))
+
+
+def gridding_recipe(shape_classes, device=None, parallel="task", **opts):
+    """The survey of tests/test_simulations.py::TestAutoGridding (16^3
+    cells of 200 m, 1 Ohm m, two x-directed sources, two receivers) at
+    0.5, 1 and 2 Hz with ``gridding='frequency'``, linear receiver
+    interpolation, complex128 and the solver options ``opts``: synthetic
+    data, then with the observed data 1.1 times them misfit and gradient
+    (no forward solve again).  Returns (the simulation, {synthetic,
+    misfit, gradient})."""
+    from emg3d_tpu_torch import (Model, RxElectricPoint, Simulation, Survey,
+                                 TensorMesh, TxElectricDipole)
+
+    h = np.ones(16) * 200.0
+    grid = TensorMesh([h, h, h], origin=(-1600.,) * 3)
+    model = Model(grid, property_x=1.0, mapping='Resistivity')
+    survey = Survey([TxElectricDipole((x, 0., -200., 0., 0.))
+                     for x in (-300., 300.)],
+                    [RxElectricPoint((x, 0., -250., 0., 0.))
+                     for x in (600., 900.)], [0.5, 1.0, 2.0],
+                    relative_error=0.05)
+    sim = Simulation(survey, model, gridding='frequency',
+                     shape_classes=shape_classes, parallel=parallel,
+                     receiver_interpolation='linear', tqdm_opts=False,
+                     verb=-1, device=device, solver_opts={
+                         'dtype': torch.complex128, 'verb': 0, **opts})
+    sim.compute()
+    sim.data['observed'] = sim.data.synthetic * 1.1
+    return sim, {"synthetic": np.asarray(sim.data.synthetic).copy(),
+                 "misfit": sim.misfit, "gradient": sim.gradient.copy()}
+
+
+# The small recipe's solver for the card against the CPU: its own, plain
+# multigrid (V-cycles: on the CPU a cycle of the plain versions takes
+# some 0.25 s on these grids, an F-cycle twice that).
+RECIPE_PLAIN = {"plain": True, "cycle": "V", "tol": 1e-6}
+
+
+def recipe_iterations(sim):
+    """{(kind, source, frequency): (exit, it_mg)} of ``sim``'s tasks."""
+    return {(which, src, freq): (info["exit"], info["it_mg"])
+            for which in ("efield", "bfield")
+            for src, freq in sim._srcfreq
+            for info in [sim._dict_get(f"{which}_info", src, freq)]}
+
+
+def cpu_recipe(classes):
+    """``gridding_recipe`` on the CPU with ``RECIPE_PLAIN`` (in a worker
+    process): (results, iterations)."""
+    torch.set_num_threads(1)
+    sim, res = gridding_recipe(classes, device="cpu", **RECIPE_PLAIN)
+    check(sim.device == "cpu", sim.device)
+    return res, recipe_iterations(sim)
+
+
+def gridding_parity(cpu_runs):
+    """At the small recipe (``gridding_recipe``), shape classes off and
+    at 1.7: on the card the task loop against the batch engine with the
+    default solver to tol 1e-10, and the card against the CPU
+    (``cpu_runs``: {classes: future of ``cpu_recipe``}) with
+    ``RECIPE_PLAIN``, the same ``it_mg`` per task; data, misfit and
+    gradient to 1e-8 of the largest entry."""
+    t0 = time.perf_counter()
+    errs = {}
+    for classes in (False, 1.7):
+        task, task_res = gridding_recipe(classes, tol=1e-10, **PRODUCTION)
+        batch, batch_res = gridding_recipe(classes, parallel="batch",
+                                           tol=1e-10, **PRODUCTION)
+        card, card_res = gridding_recipe(classes, **RECIPE_PLAIN)
+        cpu_res, cpu_its = cpu_runs[classes].result()
+        for sim in (task, batch):
+            check_tasks(sim, "efield", 1e-10)
+            check_tasks(sim, "bfield", 1e-10)
+        check(card.device == "cuda", card.device)
+        card_its = recipe_iterations(card)
+        check(card_its == cpu_its and all(
+            e == 0 for e, _ in card_its.values()), (card_its, cpu_its))
+        for pair, a, b in (("batch vs task", batch_res, task_res),
+                           ("card vs cpu", card_res, cpu_res)):
+            errs[f"{pair}, shape_classes={classes}"] = {
+                k: largest(a[k], b[k]) for k in b}
+        shapes = {card.get_grid(*sf).shape_cells for sf in card._srcfreq}
+        log(f"[gridding parity] small recipe, shape_classes={classes}: "
+            f"grid shapes {sorted(shapes)}; (exit, it_mg) per task on card "
+            f"and CPU {card_its}")
+    log(f"[gridding parity] largest differences relative to the largest "
+        f"entry: {errs} ({time.perf_counter() - t0:.1f} s)")
+    for pair, err in errs.items():
+        for name, e in err.items():
+            check(e <= 1e-8, (pair, name, e))
+
+
+def phase_frequency_gridding(n=128):
+    """salt_128_frequency_gridding (``gridding_stages``), and
+    ``gridding_parity`` at the small recipe, whose CPU side runs in
+    worker processes while the card runs the survey.  Returns {path:
+    {kernel: launches}}."""
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {c: pool.submit(cpu_recipe, c) for c in (False, 1.7)}
+        paths = gridding_stages(n)
+        gridding_parity(cpu_runs)
+    return paths
+
+
+def gridding_stages(n):
+    """salt_128_frequency_gridding: the task loop on whole-cycle graphs
+    (shape classes off; the peak of one solve on the largest grid
+    first, from an empty step cache), then the batch engine with shape
+    classes; each ``compute``, then ``misfit`` and ``gradient``.  Checks
+    convergence, the memory (``gridding_memory``) and that the step
+    cache's states and level stores are what its steps hold.  Returns
+    {path: {kernel: launches}}."""
+    from emg3d_tpu_torch import Simulation, solver
+    from emg3d_tpu_torch.parallel import tasks
+
+    survey, model = gridding_survey(n)
+    probe = gridding_kw(False)
+    log(f"[gridding] salt_128_frequency_gridding: model {model.shape} "
+        f"({model.grid.n_cells} cells), {survey.shape[0]} sources x "
+        f"{survey.shape[1]} receivers x {survey.shape[2]} frequencies "
+        f"{[round(f, 4) for f in GRIDDING_FREQUENCIES]} Hz; Simulation "
+        f"keywords {probe}")
+
+    # One solve on the largest grid, alone, from an empty step cache.
+    sim = Simulation(survey, model, **probe)
+    src = next(iter(survey.sources))
+    big = max(survey.frequencies, key=lambda f: sim.get_grid(src, f).n_cells)
+    solver._STEPS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, info = tasks.solve({
+        "model": model, "grid": sim.get_grid(src, big),
+        "source": survey.sources[src], "frequency": survey.frequencies[big],
+        "efield": None, "solver_opts": probe["solver_opts"]})
+    torch.cuda.synchronize()
+    single = torch.cuda.max_memory_allocated()
+    log(f"[gridding] one solve on the largest grid "
+        f"{sim.get_grid(src, big).shape_cells} ({big}): "
+        f"{time.perf_counter() - t0:.2f} s, it_ssl {info['it_ssl']}, it_mg "
+        f"{info['it_mg']}, max_memory_allocated {single} B")
+    check(info["exit"] == 0 and info["rel_error"] < 1e-6, info)
+    del sim
+
+    solver._STEPS.clear()       # the stage captures its own steps
+    stages, task_launches, sim = gridding_engine(
+        "task loop, shape classes off", survey, model, False, "task",
+        ["gs_phase", "line_phase"])
+    gridding_memory(stages, single)
+    held = list(solver._STEPS.values())
+    states = {id(s.state) for s in held}
+    stores = {id(s) for h in held for s in (h.store, h.store2)
+              if s is not None}
+    log(f"[gridding] the step cache at the end: {len(held)} steps "
+        f"(bound {solver._MAX_STEPS}), {step_cache_bytes()} B of states "
+        f"and level stores, len(_STATES) {len(solver._STATES)} "
+        f"({len(states)} held by steps), len(_STORES) "
+        f"{len(solver._STORES)} ({len(stores)} held by steps)")
+    check({id(s) for s in solver._STATES.values()} == states, "states")
+    check({id(s) for s in solver._STORES.values()} == stores, "stores")
+    check(solver.CYCLE_REPLAYS > solver.CYCLE_CAPTURES, "replays")
+    gridding_results(sim)
+    del sim
+
+    # With shape classes every level of the three grid shapes has lines
+    # to relax (the point smoother runs only on (2, 80, 2), a level of
+    # (128, 80, 64), which the classes pad away): line_phase alone.
+    stages_b, batch_launches, sim = gridding_engine(
+        "batch engine, shape classes True", survey, model, GRIDDING_CLASSES,
+        "batch", ["line_phase"])
+    gridding_results(sim)
+    del sim
+    for label, st in (("task loop", stages), ("batch", stages_b)):
+        total = sum(s["seconds"] for s in st.values())
+        inside = sum(s["inside"] for s in st.values())
+        log(f"[gridding] {label}: {total!r} s in all, "
+            f"{100 * (1 - inside / total):.1f} % outside the solves")
+
+    return {"salt_128_frequency_gridding": task_launches,
+            "salt_128_frequency_gridding_batch": batch_launches}
+
+
 def main():
     start = time.perf_counter()
-    seconds = {}
+    seconds, allocated = {}, {}
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        before = torch.cuda.memory_allocated()
+        gc.collect()        # what stays is held, not garbage in cycles
+        allocated[name] = (before, torch.cuda.memory_allocated())
         return out
 
     smi, name = timed("card", phase_card)
     timed("build", phase_build)
     timed("fresh process", phase_fresh_graph_solve)
     problems = main_problems()
-    (gs_shapes, line_shapes), (real_gs, real_line) = timed(
-        "levels", phase_path_levels, problems)
+    gridding = timed("gridding grids", gridding_problems)
+    (gs_shapes, line_shapes), (real_gs, real_line), gridding_line = timed(
+        "levels", phase_path_levels, problems, gridding)
+    del gridding
     gs_abs, gs_times, gs_bound = timed("gs_phase", phase_gs_vs_plain,
                                        gs_shapes, real_gs)
-    ln_abs, ln_times, ln_bound = timed("line_phase", phase_line_vs_plain,
-                                       line_shapes, real_line)
+    ln_times, ln_bound = timed("line_phase times", line_phase_times)
     batched = timed("batched kernels", phase_batched_kernels, gs_shapes,
                     line_shapes)
-    paths, main_refs = timed("main paths", phase_main_paths, problems)
+    # The timed phases are done: the line checks run beside the rest.
+    line_checks = start_line_checks(line_shapes, real_line, gridding_line)
+    paths, main_refs, bicgstab = timed("main paths", phase_main_paths,
+                                       problems)
+    paths.update(timed("krylov variants", phase_krylov_variants,
+                       problems["triaxial"], bicgstab))
+    del bicgstab
     paths["salt_survey_128_8src"], survey_results = timed(
         "survey", phase_survey)
     timed("adjoint", phase_adjoint)
@@ -2355,6 +2988,7 @@ def main():
     del main_refs, batch_ref
     paths["salt_survey_128_8src_batch"] = timed(
         "survey batch", phase_survey_batch, survey_results)
+    paths.update(timed("frequency gridding", phase_frequency_gridding))
     timed("inversion", phase_inversion)
     paths["cli_salt_128_8src"] = timed("cli", phase_cli, survey_results)
     paths["time_domain_64_128freq"] = timed("time domain",
@@ -2362,8 +2996,11 @@ def main():
     paths["laplace_triaxial_128"] = timed("laplace", phase_laplace,
                                           problems["laplace"])
     timed("examples", phase_examples)
+    ln_abs = timed("line_phase checks", finish_line_checks, line_checks)
     log(f"[time] seconds per phase {seconds}; "
         f"{time.perf_counter() - start:.1f} s in all")
+    log(f"[memory] memory_allocated after each phase, before and after "
+        f"gc.collect() {allocated} B")
     measured = {"gs_phase": (gs_abs, gs_times, gs_bound),
                 "line_phase": (ln_abs, ln_times, ln_bound)}
     record = {"kernels": [dict(

@@ -541,7 +541,14 @@ class Simulation:
         ``payload(src, freq)`` supplies the per-task solve inputs; the
         shared fields (model, solver options with ``tol``) are merged
         here and each task is spilled to file when ``file_dir`` is set.
-        Returns the list of (field, info) results.
+        Returns the list of (field, info) results, in ``srcfreq`` order.
+
+        The tasks run grid shape by grid shape, in the order in which
+        each shape first appears in ``srcfreq``: the whole-cycle steps
+        are cached per level shapes (``solver._STEPS``, a few grid
+        configurations), so a survey whose tasks cycle through more
+        shapes than that would otherwise capture its steps anew on every
+        task.
         """
         def pack(sf):
             src, freq = sf
@@ -551,10 +558,17 @@ class Simulation:
             data['solver_opts']['tol'] = tol
             return self._data_or_file(kind, src, freq, data)
 
-        return _tasks.process_map(
-            _tasks.solve, [pack(sf) for sf in srcfreq],
+        shapes = [self.get_grid(*sf).shape_cells for sf in srcfreq]
+        order = sorted(range(len(shapes)),
+                       key=lambda i: shapes.index(shapes[i]))
+        out = _tasks.process_map(
+            _tasks.solve, [pack(srcfreq[i]) for i in order],
             max_workers=self.max_workers,
             **{'desc': desc, **self._tqdm_opts})
+        results = [None] * len(srcfreq)
+        for i, res in zip(order, out):
+            results[i] = res
+        return results
 
     def _compute(self, srcfreq):
         """Solve the electric fields (reference simulations.py:835-880)."""
