@@ -42,7 +42,8 @@ Phases (any failure raises, and the script exits non-zero):
    once every timed kernel phase is done (the per-phase times of 4, 5
    and 11) and running beside the later phases; the script waits for
    them at its end.  Per-phase times at 128^3 and 64^3, with the host
-   time of the wrapper alone, are taken before.
+   time of the wrapper alone, are taken before (the plain version's at
+   128^3 along axis 0 only).
 6. The main paths (``emg3d_tpu_torch.northstar``), each driven through
    ``emg3d_tpu_torch.solve`` with both launch counts set to 0 just
    before it and read just after:
@@ -222,6 +223,21 @@ A survey on automatically built grids, and the Krylov variants:
     twice on graphs from an empty step cache, beside phase 6's warm
     BiCGSTAB; then the 16^3 stretched triaxial grid in complex128, card
     against CPU (the same ``it_ssl`` and ``it_mg``, fields to 1e-10).
+
+Memory:
+
+22. ``[memory repeat]`` (right after phase 12): with Python's collector
+    off for the whole phase, five per-operation default solves of the
+    128^3 triaxial problem (``EMG3D_TPU_CYCLE_JIT=0``), then two calls of
+    phase 12's batch; memory_allocated and max_memory_allocated after
+    each call.  From the first call to the last memory_allocated grows
+    by ``GARBAGE_LIMIT`` (16 MiB) at most, each kind's last call peaks
+    within 1 % of its first, and the calls of a kind take the same
+    iterations: what a call allocates is freed when it returns, without
+    a collection.
+23. ``[memory]``, after every phase: memory_allocated before and after
+    ``gc.collect()``; no phase may leave more than ``GARBAGE_LIMIT`` to
+    the collector (memory held in reference cycles).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -741,10 +757,12 @@ def finish_line_checks(handle):
 
 
 def line_phase_times():
-    """Per-phase times of ``line_phase`` and its plain version at 128^3
-    and 64^3, every axis, with the wrapper's host time.  Returns ((kernel,
-    plain) ms of one 128^3 phase along axis 0, (bound ms, what bounds
-    it))."""
+    """Per-phase times of ``line_phase`` at 128^3 and 64^3, every axis,
+    with the wrapper's host time, and of its plain version at 128^3 along
+    axis 0 (some 16,000 launches a phase: profiling it takes seconds per
+    shape and axis, so it is timed where the kernels' record reads it).
+    Returns ((kernel, plain) ms of one 128^3 phase along axis 0, (bound
+    ms, what bounds it))."""
     from emg3d_tpu_torch.ops import smoothers
 
     plain = smoothers._line_relax_phase_torch
@@ -755,14 +773,17 @@ def line_phase_times():
         for axis in (0, 1, 2):
             k_ev, k_dev = time_phase(kernel, args, (0, 0, axis), 50)
             k_host = host_ms(lambda: kernel(*args, 0, 0, axis))
-            p_ev, p_dev = time_phase(plain, args, (0, 0, axis), 2)
+            p_ev = p_dev = None
+            if n == 128 and axis == 0:
+                p_ev, p_dev = time_phase(plain, args, (0, 0, axis), 2)
             nbytes, flops, scratch = line_phase_work(
                 (n, n, n), (0, 0), axis, 8, 4)
             b_ms, b_by = bound_ms(nbytes, flops)
             log(f"[line_phase] phase time {n}^3 complex64 axis {axis} (ms "
                 f"per phase): kernel {k_ev!r} on the stream, {k_dev!r} "
                 f"device, {k_host!r} host time of the wrapper alone; plain "
-                f"{p_ev!r} on the stream, {p_dev!r} device; "
+                f"{p_ev!r} on the stream, {p_dev!r} device (None: not "
+                f"timed); "
                 f"bound {b_ms!r} ({b_by}: {nbytes} B, {flops} flop; "
                 f"scratch apart {scratch} B)")
             if n == 128 and axis == 0:
@@ -1024,6 +1045,7 @@ def drive(label, problem, kernels, profiled=False, **kw):
     model, sfield = problem
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     kernel_counts(reset=True)
     solver.reset_counts()
     prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
@@ -1049,7 +1071,8 @@ def drive(label, problem, kernels, profiled=False, **kw):
         f"cells/s, it_ssl {info['it_ssl']}, it_mg {info['it_mg']}, "
         f"rel_error {info['rel_error']!r}, {info['exit_message']}, "
         f"max_memory_allocated {run['peak']} B (reserved "
-        f"{run['reserved']} B, the graphs' pool included), launches "
+        f"{run['reserved']} B, the graphs' pool included; allocated at the "
+        f"start {start} B), launches "
         f"through the wrappers {run['launches']}, plain calls on cuda "
         f"{({k: c[1] for k, c in counts.items()})}, cycle graphs: "
         f"{run['captures']} captures, {run['replays']} replays"
@@ -1269,18 +1292,22 @@ def phase_survey(n=128, nsrc=8):
     stages = {}
 
     def stage(name, nsolves, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
         with northstar.timed_solves() as inside:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         check(len(inside) == nsolves, (name, len(inside), nsolves))
-        stages[name] = (dt, sum(inside))
+        stages[name] = (dt, sum(inside), torch.cuda.max_memory_allocated())
         log(f"[survey] {name}: {dt!r} s for {nsolves} solves, {dt / nsolves!r}"
             f" s per solve, {cells * nsolves / dt:.0f} cells x solves / s; "
             f"{sum(inside)!r} s inside solve (smallest {min(inside)!r}, "
             f"largest {max(inside)!r}), {100 * (1 - sum(inside) / dt):.1f} % "
-            f"outside it")
+            f"outside it; max_memory_allocated {stages[name][2]} B "
+            f"(allocated at the stage's start {start} B)")
         return out
 
     # Forward: synthetic data, with seeded noise, become the observed data.
@@ -1381,7 +1408,7 @@ def phase_survey(n=128, nsrc=8):
         f"cells x solves / s), {100 * (1 - inside / total):.1f} % outside "
         f"solve (forward pass alone "
         f"{100 * (1 - stages['forward'][1] / stages['forward'][0]):.1f} %); "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"max_memory_allocated {max(st[2] for st in stages.values())} B; "
         f"launches through the wrappers (first uses and captures; replays "
         f"do not pass through them) "
         f"{({k: c[0] for k, c in counts.items()})}, plain calls on cuda "
@@ -1491,6 +1518,79 @@ def phase_solve_batch(problems):
           == ['CONVERGED'] * len(small_src), "exit")
     check(err <= 1e-10, err)
     return {k: c[0] for k, c in counts.items()}, (efields, info)
+
+
+# What a phase may leave to Python's collector (memory_allocated before
+# less after gc.collect()), and what ``[memory repeat]`` may grow by from
+# its first call to its last with the collector off: a call of the port
+# frees what it allocated when it returns.
+GARBAGE_LIMIT = 16 * 2 ** 20
+# ``[memory repeat]``: the last call of a kind peaks within this share of
+# the first call of that kind.
+REPEAT_PEAK_RTOL = 0.01
+
+
+def phase_memory_repeat(problem, nsolves=5, nbatches=2):
+    """``[memory repeat]``: with Python's collector off for the whole
+    phase, ``nsolves`` per-operation default solves of ``problem`` (the
+    128^3 triaxial problem, ``EMG3D_TPU_CYCLE_JIT=0``), then ``nbatches``
+    ``solve_batch_fields`` calls of its source at 0.25, 0.5, 1 and 2 Hz
+    (phase 12's batch).  After each call its memory_allocated and
+    max_memory_allocated (reset just before it), printed as they come.
+    From the first call to the last memory_allocated may grow by
+    ``GARBAGE_LIMIT`` at most, the last call of each kind must peak
+    within ``REPEAT_PEAK_RTOL`` of the first of its kind, and the calls
+    of a kind take the same iterations."""
+    from emg3d_tpu_torch import get_source_field, solve, solve_batch_fields
+
+    model, sfield = problem
+    freqs = [0.25, 0.5, 1.0, 2.0]
+    sfields = [get_source_field(model.grid, (0., 0., 0., 0., 0.), f)
+               for f in freqs]
+
+    def single():
+        _, info = solve(model, sfield, return_info=True, tol=1e-6)
+        check(info["exit"] == 0, info["exit_message"])
+        return info["it_ssl"], info["it_mg"]
+
+    def batched():
+        _, info = solve_batch_fields(model, sfields, tol=1e-6, **PRODUCTION)
+        check(info["exit_messages"] == ["CONVERGED"] * len(freqs), info)
+        return info["it_ssl"], info["it_mg"]
+
+    calls = ([("solve", single)] * nsolves
+             + [("solve_batch", batched)] * nbatches)
+    rows = []
+    os.environ["EMG3D_TPU_CYCLE_JIT"] = "0"
+    gc.collect()
+    gc.disable()
+    try:
+        log(f"[memory repeat] collector off; memory_allocated at the start "
+            f"{torch.cuda.memory_allocated()} B")
+        for i, (kind, call) in enumerate(calls):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            its = call()
+            torch.cuda.synchronize()
+            rows.append((kind, its, torch.cuda.memory_allocated(),
+                         torch.cuda.max_memory_allocated()))
+            log(f"[memory repeat] call {i + 1} ({kind}, "
+                f"{time.perf_counter() - t0:.3f} s, it_ssl {its[0]}, it_mg "
+                f"{its[1]}): memory_allocated {rows[-1][2]} B, "
+                f"max_memory_allocated {rows[-1][3]} B")
+    finally:
+        gc.enable()
+        del os.environ["EMG3D_TPU_CYCLE_JIT"]
+    growth = rows[-1][2] - rows[0][2]
+    peaks = {k: [r[3] for r in rows if r[0] == k] for k, _ in calls}
+    log(f"[memory repeat] memory_allocated from the first call to the last "
+        f"grew by {growth} B (limit {GARBAGE_LIMIT} B); peaks by kind "
+        f"{peaks} B")
+    check(growth <= GARBAGE_LIMIT, ("memory repeat growth", growth))
+    for kind, p in peaks.items():
+        check(abs(p[-1] - p[0]) <= REPEAT_PEAK_RTOL * p[0], (kind, p))
+        check(len({r[1] for r in rows if r[0] == kind}) == 1, (kind, rows))
 
 
 def mesh_entries():
@@ -1781,17 +1881,23 @@ def phase_survey_batch(ref, n=128, nsrc=8):
     stages = {}
 
     def stage(name, nbatches, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
         with northstar.timed_solves() as inside:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         check(len(inside) == nbatches, (name, len(inside), nbatches))
-        stages[name] = (dt, sum(inside))
+        peak = torch.cuda.max_memory_allocated()
+        stages[name] = (dt, sum(inside), peak)
         log(f"[survey batch] {name}: {dt!r} s, {nbatches} batched solve(s) "
             f"of {nsrc} lanes, {sum(inside)!r} s inside them "
             f"({[round(t, 3) for t in inside]}), "
-            f"{100 * (1 - sum(inside) / dt):.1f} % outside")
+            f"{100 * (1 - sum(inside) / dt):.1f} % outside; "
+            f"max_memory_allocated {peak} B ({peak // nsrc} B per lane; "
+            f"allocated at the stage's start {start} B)")
         return out
 
     sim = Simulation(survey, model, **kw)
@@ -1821,7 +1927,7 @@ def phase_survey_batch(ref, n=128, nsrc=8):
         f"batches ({cells * nsolves / total:.0f} cells x solves / s), "
         f"{100 * (1 - inside / total):.1f} % outside the batched solves; "
         f"(it_ssl, it_mg) per batch {sorted(set(its))}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"max_memory_allocated {max(st[2] for st in stages.values())} B; "
         f"launches {({k: c[0] for k, c in counts.items()})}, plain calls on "
         f"cuda {({k: c[1] for k, c in counts.items()})}; against the task "
         f"loop (largest difference relative to the largest entry; misfit "
@@ -2983,6 +3089,7 @@ def main():
     timed("survey card vs cpu", phase_survey_card_vs_cpu)
     paths["solve_batch_triaxial_128_4freq"], batch_ref = timed(
         "solve_batch", phase_solve_batch, problems)
+    timed("memory repeat", phase_memory_repeat, problems["triaxial"])
     paths.update(timed("multi-device", phase_multi_device, problems,
                        main_refs, batch_ref))
     del main_refs, batch_ref
@@ -3001,6 +3108,11 @@ def main():
         f"{time.perf_counter() - start:.1f} s in all")
     log(f"[memory] memory_allocated after each phase, before and after "
         f"gc.collect() {allocated} B")
+    garbage = {k: b - a for k, (b, a) in allocated.items()}
+    log(f"[memory] left to the collector by each phase {garbage} B (limit "
+        f"{GARBAGE_LIMIT} B)")
+    for phase, nbytes in garbage.items():
+        check(nbytes <= GARBAGE_LIMIT, ("garbage", phase, nbytes))
     measured = {"gs_phase": (gs_abs, gs_times, gs_bound),
                 "line_phase": (ln_abs, ln_times, ln_bound)}
     record = {"kernels": [dict(

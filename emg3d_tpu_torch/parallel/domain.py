@@ -238,8 +238,11 @@ class Layout:
         """Copies that fill ``dst``'s blocks from this layout's owned
         entries: [(src block, src slices, dst block, dst slices)].  With
         ``halos_only`` (``dst`` is this layout) a block takes nothing
-        from itself: only its halos are filled."""
-        key = (dst, kind, halos_only)
+        from itself: only its halos are filled.  The cache is keyed by
+        ``dst``'s blocks, not by ``dst``: a layout that held another one
+        (or itself) in its cache, and was held by it, would be a
+        reference cycle."""
+        key = (dst.shape, dst.blocks, kind, halos_only)
         if key not in self._plans:
             out = []
             for d in range(len(dst.blocks)):

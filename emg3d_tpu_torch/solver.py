@@ -564,6 +564,47 @@ def _accumulate_(e_hi, e_lo, de):
         hi.copy_(hi2)
 
 
+def _smooth_traced(e, s, meta, levels, level, nu, var):
+    """``_smooth`` on ``level``, its index appended to ``var.level_all``
+    (the level trace that feeds the verb>3 cycle-QC visualization)."""
+    var.level_all.append(level)
+    return _smooth(e, s, levels[level], meta[level][1], nu)
+
+
+def _cycle_level(s, e, meta, levels, level, new_cycmax, var):
+    """The cycle on ``level`` (> 0) and below, in place on its guess e.
+
+    ``new_cycmax`` is the F-cycle's decreasing cycle count handed down by
+    the level above (reference solver.py:519-526); the coarsest level
+    runs one Gauss-Seidel solve (solver.py:566-578).  A module function
+    that calls itself by name: a nested closure that called itself would
+    hold its own cell, a reference cycle that kept the whole hierarchy
+    alive until the collector ran.
+    """
+    coarsest = level == len(meta) - 1
+    if coarsest:
+        cycmax = 1
+    elif new_cycmax == 0 or var.cycle != 'F':
+        cycmax = var.cycmax
+    else:
+        cycmax = new_cycmax
+
+    for cyc in range(cycmax):
+        if coarsest:
+            e = _smooth_traced(e, s, meta, levels, level, var.nu_coarse,
+                               var)
+            continue
+        if var.nu_pre > 0:
+            e = _smooth_traced(e, s, meta, levels, level, var.nu_pre, var)
+        cs, ce = _restrict(e, s, levels[level], meta[level][2])
+        ce = _cycle_level(cs, ce, meta, levels, level + 1, cycmax - cyc,
+                          var)
+        e = _prolong(e, ce, levels[level], meta[level][2])
+        if var.nu_post > 0:
+            e = _smooth_traced(e, s, meta, levels, level, var.nu_post, var)
+    return e
+
+
 def _cycle_correction(meta, levels, r, var, first):
     """One multigrid cycle applied to residual ``r`` from a zero guess.
 
@@ -576,57 +617,21 @@ def _cycle_correction(meta, levels, r, var, first):
     correction ``de``.  The batch engine runs the same cycle on its
     levels with a task axis.
     """
-    nlevels = len(meta)
-    cycle = var.cycle
-    cycmax0 = var.cycmax
-
-    def track_smooth(e, s, level, nu):
-        # The level trace feeds the verb>3 cycle-QC visualization.
-        var.level_all.append(level)
-        return _smooth(e, s, levels[level], meta[level][1], nu)
-
-    def recurse(s, e, level, new_cycmax):
-        lvl, coarsen = levels[level], meta[level][2]
-        if level == nlevels - 1:
-            cycmax = 1
-        elif new_cycmax == 0 or cycle != 'F':
-            cycmax = cycmax0
-        else:
-            cycmax = new_cycmax
-
-        it = 0
-        cyc = 0
-        while it < cycmax:
-            if level == nlevels - 1:
-                # Coarsest grid: Gauss-Seidel as direct-ish solver.
-                e = track_smooth(e, s, level, var.nu_coarse)
-            else:
-                if var.nu_pre > 0:
-                    e = track_smooth(e, s, level, var.nu_pre)
-                cs, ce = _restrict(e, s, lvl, coarsen)
-                ce = recurse(cs, ce, level + 1, cycmax - cyc)
-                e = _prolong(e, ce, lvl, coarsen)
-                if var.nu_post > 0:
-                    e = track_smooth(e, s, level, var.nu_post)
-            it += 1
-            cyc += 1
-        return e
-
     de = tuple(torch.zeros_like(c) for c in r)
 
     if first and var.nu_init > 0:
-        de = track_smooth(de, r, 0, var.nu_init)
+        de = _smooth_traced(de, r, meta, levels, 0, var.nu_init, var)
 
-    if nlevels == 1:
-        de = track_smooth(de, r, 0, var.nu_coarse)
+    if len(meta) == 1:
+        de = _smooth_traced(de, r, meta, levels, 0, var.nu_coarse, var)
     else:
         if var.nu_pre > 0:
-            de = track_smooth(de, r, 0, var.nu_pre)
+            de = _smooth_traced(de, r, meta, levels, 0, var.nu_pre, var)
         cs, ce = _restrict(de, r, levels[0], meta[0][2])
-        ce = recurse(cs, ce, 1, cycmax0)
+        ce = _cycle_level(cs, ce, meta, levels, 1, var.cycmax, var)
         de = _prolong(de, ce, levels[0], meta[0][2])
         if var.nu_post > 0:
-            de = track_smooth(de, r, 0, var.nu_post)
+            de = _smooth_traced(de, r, meta, levels, 0, var.nu_post, var)
 
     return de
 

@@ -13,6 +13,9 @@ on the same static buffers.  Here, with ``device='cpu'``:
 - a second solve on a new ``Model`` of the same grid makes no new step,
   captures nothing and gives the same field;
 - ``verb=4`` runs the per-operation cycle and prints the cycle-QC;
+- the level trace of the per-operation cycle (``var.level_all``, which
+  the cycle-QC draws) equals the JAX package's, smoothing call by
+  smoothing call, for F, W and V cycles at 16^3 with ``nu_init=1``;
 - the step cache stays within its bound;
 - ``auto`` is off on the CPU, and the switch is read on every solve.
 
@@ -27,6 +30,7 @@ import threadpoolctl
 import torch
 
 from emg3d_tpu import fields, meshes, models
+from emg3d_tpu import solver as j_solver
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 
@@ -125,6 +129,36 @@ def test_cache_bound(monkeypatch):
         assert len(t_solver._STEPS) <= 2
     assert list(t_solver._STEPS) == keys[1:]      # the oldest dropped
     assert t_solver.CYCLE_CAPTURES == 3
+
+
+def recording(made, key, cls):
+    """``cls`` (an MGParameters), whose instance is kept in
+    ``made[key]``."""
+    def make(**kwargs):
+        made[key] = cls(**kwargs)
+        return made[key]
+    return make
+
+
+@pytest.mark.parametrize('cycle', ['F', 'W', 'V'])
+def test_level_trace_against_jax(cycle, monkeypatch, capsys):
+    """``var.level_all`` of a per-operation 16^3 solve equals the JAX
+    package's (``capsys`` takes the verb=4 output, which is not read)."""
+    made = {}
+    for key, mod in (('jax', j_solver), ('port', t_solver)):
+        monkeypatch.setattr(mod, 'MGParameters',
+                            recording(made, key, mod.MGParameters))
+    kw = dict(plain=True, cycle=cycle, nu_init=1, maxit=4, verb=4)
+    model, sfield = problem((16, 16, 16))
+    monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', '0')
+    _, jinfo = j_solver.solve(model, sfield, return_info=True, **kw)
+    _, info = port_solve('0', monkeypatch, (16, 16, 16), **kw)
+    assert info['it_mg'] == jinfo['it_mg'] > 1
+    trace = made['port'].level_all
+    assert len(trace) > 4 * info['it_mg'] and max(trace) == 3
+    assert trace == made['jax'].level_all
+    assert (t_solver._cycle_qc(made['port'])
+            == j_solver._cycle_qc(made['jax']))
 
 
 @pytest.mark.parametrize('mode', ['auto', '0'])
