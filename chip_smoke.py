@@ -1271,7 +1271,7 @@ def phase_survey(n=128, nsrc=8):
     """The salt-class ``n``^3 survey of ``nsrc`` sources.  Returns
     {kernel: launches} of the whole phase and its results (synthetic
     and observed data, misfit, gradient, ``jvec``)."""
-    from emg3d_tpu_torch import Simulation, northstar, solver
+    from emg3d_tpu_torch import Simulation, northstar, solver, tracing
 
     survey, model, kw = northstar.salt_survey(n, nsrc)
     kw['tqdm_opts'] = False
@@ -1295,11 +1295,13 @@ def phase_survey(n=128, nsrc=8):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.memory_allocated()
-        with northstar.timed_solves() as inside:
+        tracing.clear()
+        with tracing.recording():
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+        inside = [r.seconds for r in tracing.roots()]
         check(len(inside) == nsolves, (name, len(inside), nsolves))
         stages[name] = (dt, sum(inside), torch.cuda.max_memory_allocated())
         log(f"[survey] {name}: {dt!r} s for {nsolves} solves, {dt / nsolves!r}"
@@ -1866,7 +1868,7 @@ def phase_survey_batch(ref, n=128, nsrc=8):
     ``n``^3 one batch of ``nsrc`` lanes per solve stage, held against
     ``ref``, the task loop's results of the same run.
     Returns {kernel: launches} of the ``n``^3 run."""
-    from emg3d_tpu_torch import Simulation, northstar
+    from emg3d_tpu_torch import Simulation, northstar, tracing
 
     survey_tolerance_witness(nsrc=4)
     survey, model, kw = northstar.salt_survey(n, nsrc)
@@ -1884,11 +1886,13 @@ def phase_survey_batch(ref, n=128, nsrc=8):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.memory_allocated()
-        with northstar.timed_solves() as inside:
+        tracing.clear()
+        with tracing.recording():
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+        inside = [r.seconds for r in tracing.roots()]
         check(len(inside) == nbatches, (name, len(inside), nbatches))
         peak = torch.cuda.max_memory_allocated()
         stages[name] = (dt, sum(inside), peak)
@@ -2745,17 +2749,19 @@ def gridding_stage(name, nsolves, fn, stages, rows=None):
     them), per task the running peak where ``rows`` (a list) is given."""
     import contextlib
 
-    from emg3d_tpu_torch import northstar
+    from emg3d_tpu_torch import tracing
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first = 0 if rows is None else len(rows)
     ctx = contextlib.nullcontext() if rows is None else task_rows(rows)
-    with northstar.timed_solves() as inside, ctx:
+    tracing.clear()
+    with tracing.recording(), ctx:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+    inside = [r.seconds for r in tracing.roots()]
     check(len(inside) == nsolves, (name, len(inside), nsolves))
     peak = torch.cuda.max_memory_allocated()
     stages[name] = {"seconds": dt, "inside": sum(inside), "peak": peak,

@@ -18,7 +18,7 @@ from copy import deepcopy
 import numpy as np
 import scipy as sp
 
-from emg3d_tpu_torch import maps, meshes, utils
+from emg3d_tpu_torch import maps, meshes, tracing, utils
 
 __all__ = ["Model", "VolumeModel", "expand_grid_model"]
 
@@ -333,28 +333,29 @@ class VolumeModel:
 
     eta = -smu0 * V * (sigma + sval * eps0 * epsilon_r), zeta = V / mu_r
     (reference: emg3d/models.py:627-717).  eta_y/eta_z alias eta_x unless
-    HTI/VTI/triaxial.
+    HTI/VTI/triaxial.  Built in an ``emg3d.model.volume`` span.
     """
 
     def __init__(self, model, sfield):
-        self.case = model.case
-        self.grid = meshes.TensorMesh(model.grid.h, model.grid.origin)
+        with tracing.span('emg3d.model.volume'):
+            self.case = model.case
+            self.grid = meshes.TensorMesh(model.grid.h, model.grid.origin)
 
-        vol = self.grid.cell_volumes_3d
-        displacement = (0.0 if model.epsilon_r is None else
-                        sfield.sval * sp.constants.epsilon_0
-                        * model.epsilon_r)
+            vol = self.grid.cell_volumes_3d
+            displacement = (0.0 if model.epsilon_r is None else
+                            sfield.sval * sp.constants.epsilon_0
+                            * model.epsilon_r)
 
-        def eta_of(prop):
-            if prop is None:
-                return None
-            sigma = model.map.backward(prop)
-            return -sfield.smu0 * vol * (sigma + displacement)
+            def eta_of(prop):
+                if prop is None:
+                    return None
+                sigma = model.map.backward(prop)
+                return -sfield.smu0 * vol * (sigma + displacement)
 
-        self._eta_x = eta_of(model.property_x)
-        self._eta_y = eta_of(model.property_y)
-        self._eta_z = eta_of(model.property_z)
-        self._zeta = vol if model.mu_r is None else vol / model.mu_r
+            self._eta_x = eta_of(model.property_x)
+            self._eta_y = eta_of(model.property_y)
+            self._eta_z = eta_of(model.property_z)
+            self._zeta = vol if model.mu_r is None else vol / model.mu_r
 
     @property
     def eta_x(self):

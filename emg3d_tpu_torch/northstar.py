@@ -32,7 +32,6 @@ one plain F-cycle solve per frequency that ``Fourier`` needs, all on one
 grid.
 """
 
-import contextlib
 import time
 
 import numpy as np
@@ -47,7 +46,7 @@ from emg3d_tpu_torch.time import Fourier
 
 __all__ = ["baseline_problem", "triaxial_problem", "laplace_problem",
            "marine_problem", "salt_mask", "salt_model", "salt_survey",
-           "salt_box", "time_domain", "timed_solves", "SOLVE_OPTIONS"]
+           "salt_box", "time_domain", "SOLVE_OPTIONS"]
 
 SOLVE_OPTIONS = {
     "baseline": dict(plain=True, cycle='F'),
@@ -215,32 +214,3 @@ def time_domain(n=64, times=None, fmin=1e-3, fmax=1e2, offset=900.0,
     transient = np.asarray(fourier.freq2time(responses, offset)).ravel()
     return transient, per_freq
 
-
-@contextlib.contextmanager
-def timed_solves():
-    """Within the block, every ``solver.solve`` (so every task of a
-    ``Simulation``) and every batched solve
-    (``parallel.batch.solve_batch_fields``, one per grid of a
-    ``Simulation(parallel='batch')`` stage) appends its wall seconds to
-    the list that is yielded: what of a survey's time is spent inside the
-    solver (hierarchies and host copies of the solve included) and what
-    outside it (source fields, responses, gradient assembly)."""
-    from emg3d_tpu_torch.parallel import batch
-
-    seconds = []
-
-    def timed(inner):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return inner(*args, **kwargs)
-            finally:
-                seconds.append(time.perf_counter() - t0)
-        return call
-
-    inner = solver.solve, batch.solve_batch_fields
-    solver.solve, batch.solve_batch_fields = (timed(f) for f in inner)
-    try:
-        yield seconds
-    finally:
-        solver.solve, batch.solve_batch_fields = inner

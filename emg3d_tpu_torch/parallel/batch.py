@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from emg3d_tpu_torch import fields, models, solver
+from emg3d_tpu_torch import fields, models, solver, tracing
 from emg3d_tpu_torch.ops import operator
 from emg3d_tpu_torch.parallel import domain
 
@@ -99,11 +99,13 @@ def _build_hierarchy_batched(vmodels, sc_dir, lr_dir, clevel_max, device,
     if scales is not None:
         meta, levels = solver._build_hierarchy(
             vmodels[0], sc_dir, lr_dir, clevel_max, device, dtypes)
-        sc = torch.from_numpy(np.asarray(scales))
-        for lvl in levels:
-            lvl.scale = sc.to(device=device, dtype=dtypes[0])
-            if lvl.ops64 is not None:
-                lvl.scale64 = sc.to(device=device, dtype=lvl.ops64[0].dtype)
+        sc = np.asarray(scales)
+        with tracing.span('emg3d.hierarchy.to_device'):
+            for lvl in levels:
+                lvl.scale = solver._to_device(sc, device, dtypes[0])
+                if lvl.ops64 is not None:
+                    lvl.scale64 = solver._to_device(sc, device,
+                                                    lvl.ops64[0].dtype)
         return meta, levels
 
     metas, per_task = zip(*(
@@ -160,14 +162,14 @@ class _Lanes:
 
     def split(self, a, dtype=None):
         """A host array over the lanes -> per-chunk device tensors."""
-        return [torch.as_tensor(a[lo:hi], dtype=dtype, device=dev)
+        return [solver._to_device(a[lo:hi], dev, dtype)
                 for (lo, hi), dev in zip(self.bounds, self.devices)]
 
     def host(self, chunks):
         """Per-chunk device tensors over lanes -> one host array (one
         sync)."""
         dev = self.devices[0]
-        return torch.cat([c.to(dev) for c in chunks]).cpu().numpy()
+        return solver._scalar(torch.cat([c.to(dev) for c in chunks]))
 
     def lane(self, fs, lane):
         """Lane ``lane`` of a batched field: a tuple of tensors."""
@@ -194,16 +196,17 @@ class _Lanes:
 
 
 def _to_lanes(lanes, per_task):
-    """Per-task tuples of device tensors -> a batched field of ``lanes``."""
-    return [tuple(torch.stack([per_task[t][j].to(dev)
+    """Per-task tuples of host tensors -> a batched field of ``lanes``."""
+    return [tuple(torch.stack([solver._to_device(per_task[t][j], dev)
                                for t in range(lo, hi)]) for j in range(3))
             for (lo, hi), dev in zip(lanes.bounds, lanes.devices)]
 
 
 def _from_lanes(fs):
     """A batched field -> a tuple of host arrays over all lanes."""
-    return tuple(np.concatenate([c[j].cpu().numpy() for c in fs])
-                 for j in range(3))
+    with tracing.span('emg3d.fields.to_host'):
+        return tuple(np.concatenate([solver._to_host(c[j]) for c in fs])
+                     for j in range(3))
 
 
 # --------------------------------------------------------------------------
@@ -243,7 +246,7 @@ def _keep_lanes(active, new_n):
 
 def _take_level(lvl, keep):
     """The level for the lanes ``keep``: its scales, or its stacked eta."""
-    idx = torch.as_tensor(keep, device=lvl.ops[0].device)
+    idx = solver._to_device(np.asarray(keep), lvl.ops[0].device)
 
     def take(t):
         return None if t is None else t.index_select(0, idx)
@@ -383,15 +386,17 @@ def _bprecond(s, var, lanes):
     for cyc in range(var.maxit):
         sc_next, lr_next = solver._next_dirs(var)
         chunks = lanes.get(var.sc_dir, var.lr_dir)
-        for c, (meta, levels) in enumerate(chunks):
-            de = solver._cycle_correction(meta, levels, r[c], var, cyc == 0)
-            solver._accumulate_(e_hi[c], e_lo[c], de)
-        var.sc_dir, var.lr_dir = sc_next, lr_next
-        var.it += 1
-        if cyc + 1 < var.maxit:
-            r = [solver._residual_norm_split(
-                e_hi[c], e_lo[c], s[c], levels[0], per_task=True)[0]
-                for c, (_, levels) in enumerate(chunks)]
+        with tracing.span('emg3d.cycle.step', replayed=False):
+            for c, (meta, levels) in enumerate(chunks):
+                de = solver._cycle_correction(meta, levels, r[c], var,
+                                              cyc == 0)
+                solver._accumulate_(e_hi[c], e_lo[c], de)
+            var.sc_dir, var.lr_dir = sc_next, lr_next
+            var.it += 1
+            if cyc + 1 < var.maxit:
+                r = [solver._residual_norm_split(
+                    e_hi[c], e_lo[c], s[c], levels[0], per_task=True)[0]
+                    for c, (_, levels) in enumerate(chunks)]
     hdt = s[0][0].dtype
     return [tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(eh, el))
             for eh, el in zip(e_hi, e_lo)]
@@ -419,8 +424,9 @@ def _stash(stash, x, lanes, keep, hdt=None, lo=None):
         if lo is not None:
             field = tuple(h.to(hdt) + low.to(hdt) for h, low in
                           zip(field, lanes.lane(lo, lane)))
-        stash[int(lanes.tasks[lane])] = tuple(c.cpu().numpy()
-                                              for c in field)
+        with tracing.span('emg3d.fields.to_host'):
+            stash[int(lanes.tasks[lane])] = tuple(solver._to_host(c)
+                                                  for c in field)
 
 
 def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
@@ -579,9 +585,11 @@ def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
                           f"{lanes.tasks.size}/{ntask} lanes")
 
         sc_next, lr_next = solver._next_dirs(var)
-        for c, (meta, levels) in enumerate(chunks):
-            de = solver._cycle_correction(meta, levels, r[c], var, first)
-            solver._accumulate_(e_hi[c], e_lo[c], de)
+        with tracing.span('emg3d.cycle.step', replayed=False):
+            for c, (meta, levels) in enumerate(chunks):
+                de = solver._cycle_correction(meta, levels, r[c], var,
+                                              first)
+                solver._accumulate_(e_hi[c], e_lo[c], de)
         first = False
         var.sc_dir, var.lr_dir = sc_next, lr_next
         it += 1
@@ -663,8 +671,16 @@ def solve_batch_fields(model, sfields, mesh=None, axis="task", verb=0,
 
     ``efields`` (list of Field or None, per task) warm-starts each
     task; already-converged guesses terminate with zero iterations.
-    ``mesh``/``axis``: as in :func:`solve_batch`.
+    ``mesh``/``axis``: as in :func:`solve_batch`.  The call is the root
+    span ``emg3d.batch.solve`` (``emg3d_tpu_torch.tracing``).
     """
+    with tracing.span('emg3d.batch.solve', lanes=len(sfields)):
+        return _solve_batch_fields(model, sfields, mesh, axis, verb,
+                                   efields, **kwargs)
+
+
+def _solve_batch_fields(model, sfields, mesh, axis, verb, efields,
+                        **kwargs):
     t0 = time.perf_counter()
     nsrc = len(sfields)
 
@@ -727,8 +743,11 @@ def solve_batch_fields(model, sfields, mesh=None, axis="task", verb=0,
           else lanes.dtypes[0])
 
     def stacked(per_task):
-        return _to_lanes(lanes, [solver._field_to_dev(f, "cpu", dt)
-                                 for f in per_task])
+        # Staged as host tensors of ``dt``; _to_lanes copies them over.
+        with tracing.span('emg3d.fields.to_device'):
+            return _to_lanes(lanes, [
+                tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dt)
+                      for c in (f.fx, f.fy, f.fz)) for f in per_task])
 
     s = stacked(sfields)
 
@@ -757,11 +776,12 @@ def solve_batch_fields(model, sfields, mesh=None, axis="task", verb=0,
 
     # Unstack into Fields (drop the padding).
     out = []
-    for i, sf in enumerate(sfields[:nsrc]):
-        f = fields.Field(model.grid, dtype=sf.field.dtype,
-                         frequency=sf._frequency)
-        f.fx, f.fy, f.fz = (c[i] for c in x)
-        out.append(f)
+    with tracing.span('emg3d.fields.to_host'):
+        for i, sf in enumerate(sfields[:nsrc]):
+            f = fields.Field(model.grid, dtype=sf.field.dtype,
+                             frequency=sf._frequency)
+            f.fx, f.fy, f.fz = (c[i] for c in x)
+            out.append(f)
 
     info = {
         "it_mg": it_mg,

@@ -37,7 +37,7 @@ import numpy as np
 import scipy as sp
 import torch
 
-from emg3d_tpu_torch import config, fields, meshes, models, utils
+from emg3d_tpu_torch import config, fields, meshes, models, tracing, utils
 from emg3d_tpu_torch.ops import operator, smoothers, transfer
 
 __all__ = ['solve', 'solve_source', 'multigrid', 'krylov', 'smoothing',
@@ -71,7 +71,15 @@ def solve(model, sfield, sslsolver=True, semicoarsening=True,
       whole fields live.  The cycles run operation by operation.
 
     Returns the electric field (and an info dict if ``return_info``).
+    The call is the root span ``emg3d.solve`` (:mod:`tracing`).
     """
+    with tracing.span('emg3d.solve', shape=tuple(model.shape)):
+        return _solve(model, sfield, sslsolver, semicoarsening,
+                      linerelaxation, verb, **kwargs)
+
+
+def _solve(model, sfield, sslsolver, semicoarsening, linerelaxation, verb,
+           **kwargs):
     always_return = kwargs.pop('always_return', False)
 
     if kwargs.pop('plain', False):
@@ -214,24 +222,55 @@ def solve_source(model, source, frequency, **kwargs):
 # Host <-> device.
 # ==========================================================================
 
+def _to_device(a, device, dtype=None):
+    """A host array (or host tensor) as a C-contiguous tensor of ``dtype``
+    on ``device``; counts ``h2d_bytes`` (of the device tensor) and
+    ``h2d_copies``."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    t = a.to(device=device, dtype=dtype)
+    tracing.count('h2d_bytes', t.numel() * t.element_size())
+    tracing.count('h2d_copies')
+    return t
+
+
+def _to_host(t):
+    """A device tensor (or the Pieces of a sharded one) as a host NumPy
+    array; counts ``d2h_bytes`` and ``d2h_copies``."""
+    h = t.cpu()
+    tracing.count('d2h_bytes', h.numel() * h.element_size())
+    tracing.count('d2h_copies')
+    return h.numpy()
+
+
+def _scalar(t):
+    """A host read of device values, in an ``emg3d.sync`` span; counts
+    ``host_syncs``.  A 0-d tensor gives a float (a complex for a complex
+    tensor), any other a NumPy array."""
+    with tracing.span('emg3d.sync'):
+        tracing.count('host_syncs')
+        a = _to_host(t)
+    return a.item() if a.ndim == 0 else a
+
+
 def _field_to_dev(field, device, dtype):
     """Field -> tuple of C-contiguous device tensors of ``dtype``.
 
     The Field's components are Fortran-ordered views: they are made
     C-contiguous before the copy.
     """
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(f)).to(device=device,
-                                                     dtype=dtype)
-        for f in (field.fx, field.fy, field.fz))
+    return tuple(_to_device(f, device, dtype)
+                 for f in (field.fx, field.fy, field.fz))
 
 
 def _dev_to_field(e, grid, frequency, dtype):
-    """Tuple of device tensors -> Field (host)."""
-    out = fields.Field(grid, dtype=dtype, frequency=frequency)
-    out.fx = e[0].cpu().numpy().astype(dtype)
-    out.fy = e[1].cpu().numpy().astype(dtype)
-    out.fz = e[2].cpu().numpy().astype(dtype)
+    """Tuple of device tensors -> Field (host), in an
+    ``emg3d.fields.to_host`` span."""
+    with tracing.span('emg3d.fields.to_host'):
+        out = fields.Field(grid, dtype=dtype, frequency=frequency)
+        out.fx = _to_host(e[0]).astype(dtype)
+        out.fy = _to_host(e[1]).astype(dtype)
+        out.fz = _to_host(e[2]).astype(dtype)
     return out
 
 
@@ -245,13 +284,8 @@ def _host_dtypes(vmodel):
 def _level_tensors(eta_x, eta_y, eta_z, zeta, h, device, dtypes):
     """(eta_x, eta_y, eta_z, zeta, hx, hy, hz) as device tensors."""
     cdt, rdt = dtypes
-
-    def dev(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dt)
-
-    return (dev(eta_x, cdt), dev(eta_y, cdt), dev(eta_z, cdt),
-            dev(zeta, rdt), dev(h[0], rdt), dev(h[1], rdt), dev(h[2], rdt))
+    return (*(_to_device(a, device, cdt) for a in (eta_x, eta_y, eta_z)),
+            *(_to_device(a, device, rdt) for a in (zeta, *h)))
 
 
 # ==========================================================================
@@ -355,10 +389,6 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes,
     h = [np.asarray(vmodel.grid.h[i]) for i in range(3)]
     origin = np.asarray(vmodel.grid.origin)
 
-    def dev(a, dt=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dt)
-
     meta, levels = [], []
     layout = (None if placement is None
               else placement.layout(vmodel.grid.shape_cells))
@@ -370,11 +400,13 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes,
             lvl = placement.level(layout, (eta_x, eta_y, eta_z, zeta), h,
                                   dtypes, host)
         else:
-            lvl = _Level(_level_tensors(eta_x, eta_y, eta_z, zeta, h,
-                                        device, dtypes))
-            if level == 0:
-                lvl.ops64 = (lvl.ops if host == dtypes else _level_tensors(
-                    eta_x, eta_y, eta_z, zeta, h, device, host))
+            with tracing.span('emg3d.hierarchy.to_device'):
+                lvl = _Level(_level_tensors(eta_x, eta_y, eta_z, zeta, h,
+                                            device, dtypes))
+                if level == 0:
+                    lvl.ops64 = (lvl.ops if host == dtypes else
+                                 _level_tensors(eta_x, eta_y, eta_z, zeta,
+                                                h, device, host))
         levels.append(lvl)
         if level == clevel_max:
             meta.append((shape, _current_lr_dir(lr_dir, shape), None))
@@ -403,18 +435,22 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes,
             lvl.set_transfer(coarsen, tuple(cgrid.shape_cells), rw, pm)
             layout = lvl.coarse[0] if lvl.coarse[1] else None
         else:
-            lvl.rw = tuple(None if w is None else tuple(dev(x, rdt)
-                                                        for x in w)
-                           for w in rw)
-            lvl.pm = tuple(None if m is None else (dev(m[0]),
-                                                   dev(m[1], rdt))
-                           for m in pm)
+            with tracing.span('emg3d.hierarchy.to_device'):
+                lvl.rw = tuple(
+                    None if w is None else tuple(
+                        _to_device(x, device, rdt) for x in w)
+                    for w in rw)
+                lvl.pm = tuple(
+                    None if m is None else (_to_device(m[0], device),
+                                            _to_device(m[1], device, rdt))
+                    for m in pm)
 
         # Restrict model parameters (host numpy).
-        eta_x = transfer.restrict_model_parameters(eta_x, coarsen)
-        eta_y = transfer.restrict_model_parameters(eta_y, coarsen)
-        eta_z = transfer.restrict_model_parameters(eta_z, coarsen)
-        zeta = transfer.restrict_model_parameters(zeta, coarsen)
+        with tracing.span('emg3d.hierarchy.restrict_model'):
+            eta_x = transfer.restrict_model_parameters(eta_x, coarsen)
+            eta_y = transfer.restrict_model_parameters(eta_y, coarsen)
+            eta_z = transfer.restrict_model_parameters(eta_z, coarsen)
+            zeta = transfer.restrict_model_parameters(zeta, coarsen)
         h = ch
 
     return tuple(meta), levels
@@ -445,19 +481,22 @@ class _Hierarchies:
     def to_dev(self, field, dtype):
         """A host Field on the finest level: device tensors, or Pieces of
         its layout where it is sharded."""
-        if self.layout is None:
-            return _field_to_dev(field, self.device, dtype)
-        from emg3d_tpu_torch.parallel import domain
-        return domain.place_field(self.layout, (field.fx, field.fy,
-                                                field.fz), dtype)
+        with tracing.span('emg3d.fields.to_device'):
+            if self.layout is None:
+                return _field_to_dev(field, self.device, dtype)
+            from emg3d_tpu_torch.parallel import domain
+            return domain.place_field(self.layout, (field.fx, field.fy,
+                                                    field.fz), dtype)
 
     def get(self, sc_dir, lr_dir):
         key = (int(sc_dir), int(lr_dir))
         if key not in self._cache:
             akey = int(sc_dir)
             if akey not in self._acache:
-                self._acache[akey] = self._build(
-                    sc_dir, lr_dir, self.var.clevel[min(akey, 3)])
+                with tracing.span('emg3d.hierarchy.build', sc_dir=akey):
+                    tracing.count('hierarchy_builds')
+                    self._acache[akey] = self._build(
+                        sc_dir, lr_dir, self.var.clevel[min(akey, 3)])
             meta0, levels = self._acache[akey]
             meta = tuple((shape, _current_lr_dir(lr_dir, shape), coarsen)
                          for shape, _, coarsen in meta0)
@@ -882,8 +921,10 @@ class _CycleStep:
 
     The kernels' launch counters count what passes through their
     wrappers: the eager first use and the launches recorded at capture.
-    A replay runs the recorded kernels without the wrappers and counts
-    in ``CYCLE_REPLAYS`` only.
+    A replay runs the recorded kernels without the wrappers; it counts in
+    ``CYCLE_REPLAYS`` and adds the launches its capture recorded
+    (``launches``) to ``tracing``'s ``replayed_launches.*``, the capture
+    itself to ``captured_launches.*``.
     """
 
     def __init__(self, meta, cfg_key, first, state, store, store2=None):
@@ -896,6 +937,7 @@ class _CycleStep:
         self.device = state.r[0].device
         self.graph = None
         self.captured = False
+        self.launches = (0, 0)      # (gs_phase, line_phase) in the graph
 
     def _body(self):
         st = self.state
@@ -916,33 +958,44 @@ class _CycleStep:
             if _POOL is None:
                 _POOL = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            before = tracing.wrapper_launches()
             with torch.cuda.device(self.device), torch.cuda.graph(
                     graph, pool=_POOL):
                 self._body()
+            self.launches = tuple(
+                n - b for n, b in zip(tracing.wrapper_launches(), before))
+            for k, n in zip(tracing.KERNELS, self.launches):
+                tracing.count(f'captured_launches.{k}', n)
             self.graph = graph
         self.captured = True
         CYCLE_CAPTURES += 1
 
     def __call__(self):
+        """Run the step; returns whether it replayed a graph."""
         global CYCLE_REPLAYS
         if not self.captured:
             self._body()
             self._capture()
-            return
+            return False
         if self.graph is None:
             self._body()
         else:
             with torch.cuda.device(self.device):
                 self.graph.replay()
+            for k, n in zip(tracing.KERNELS, self.launches):
+                tracing.count(f'replayed_launches.{k}', n)
         CYCLE_REPLAYS += 1
+        return self.graph is not None
 
 
 def _cached_step(key, make):
     """The step of ``key`` from the cache (made by ``make()`` if absent)."""
     step = _STEPS.get(key)
     if step is None:
+        tracing.count('step_misses')
         step = _STEPS[key] = make()
         while len(_STEPS) > _MAX_STEPS:
+            tracing.count('step_evictions')
             _STEPS.popitem(last=False)
     else:
         _STEPS.move_to_end(key)
@@ -959,22 +1012,25 @@ def _whole_step(meta, meta2, cfg_key, first, state, levels, levels2):
     (the first cycle with ``nu_init > 0``).  The step is cached on
     ``(meta, meta2, cfg_key, first)``, the working dtype and the device.
     """
-    store, store2 = _level_store(meta, levels), _level_store(meta2, levels2)
-    key = ('step', meta, meta2, cfg_key, first, state.r[0].dtype,
-           state.r[0].device)
-    _cached_step(key, lambda: _CycleStep(meta, cfg_key, first, state,
-                                         store, store2))()
-    return float(state.l2)
+    with tracing.span('emg3d.cycle.step') as sp:
+        store = _level_store(meta, levels)
+        store2 = _level_store(meta2, levels2)
+        key = ('step', meta, meta2, cfg_key, first, state.r[0].dtype,
+               state.r[0].device)
+        sp.set(replayed=_cached_step(key, lambda: _CycleStep(
+            meta, cfg_key, first, state, store, store2))())
+        return _scalar(state.l2)
 
 
 def _whole_corr(meta, cfg_key, first, state, levels):
     """Run one cycle and its accumulate as a step, without the next
     residual: the last cycle of the preconditioner."""
-    store = _level_store(meta, levels)
-    key = ('corr', meta, cfg_key, first, state.r[0].dtype,
-           state.r[0].device)
-    _cached_step(key, lambda: _CycleStep(meta, cfg_key, first, state,
-                                         store))()
+    with tracing.span('emg3d.cycle.step') as sp:
+        store = _level_store(meta, levels)
+        key = ('corr', meta, cfg_key, first, state.r[0].dtype,
+               state.r[0].device)
+        sp.set(replayed=_cached_step(key, lambda: _CycleStep(
+            meta, cfg_key, first, state, store))())
 
 
 # ==========================================================================
@@ -1002,7 +1058,7 @@ def multigrid(model, sfield, efield, var):
     e_lo = tuple(torch.zeros_like(c) for c in e_hi)
 
     r, l2 = _residual_norm_split(e_hi, e_lo, s, levels[0])
-    l2_last = float(l2)
+    l2_last = _scalar(l2)
     l2_stag = np.ones(var.maxcycle) * l2_last
 
     graph = _use_cycle_graph(var)
@@ -1028,10 +1084,11 @@ def multigrid(model, sfield, efield, var):
                                   first and var.nu_init > 0, state, levels,
                                   levels2)
         else:
-            de = _cycle_correction(meta, levels, r, var, first)
-            _accumulate_(e_hi, e_lo, de)
-            r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
-            l2_last = float(l2)
+            with tracing.span('emg3d.cycle.step', replayed=False):
+                de = _cycle_correction(meta, levels, r, var, first)
+                _accumulate_(e_hi, e_lo, de)
+                r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
+                l2_last = _scalar(l2)
         meta, levels = meta2, levels2
         var.sc_dir, var.lr_dir = sc_next, lr_next
         _after_first_cycle(var)
@@ -1058,10 +1115,12 @@ def multigrid(model, sfield, efield, var):
     # Combine the split field on the host in the Field's (float64)
     # dtype so the achieved algebraic accuracy survives the export.
     dtype = efield.field.dtype
-    out = fields.Field(efield.grid, dtype=dtype, frequency=efield._frequency)
-    out.fx, out.fy, out.fz = (
-        h.cpu().numpy().astype(dtype) + lo.cpu().numpy().astype(dtype)
-        for h, lo in zip(e_hi, e_lo))
+    with tracing.span('emg3d.fields.to_host'):
+        out = fields.Field(efield.grid, dtype=dtype,
+                           frequency=efield._frequency)
+        out.fx, out.fy, out.fz = (
+            _to_host(h).astype(dtype) + _to_host(lo).astype(dtype)
+            for h, lo in zip(e_hi, e_lo))
     efield.field = out.field
 
 
@@ -1148,12 +1207,14 @@ def krylov(model, sfield, efield, var):
                 l2_last = _whole_step(meta, meta2, cfg_key, first_eff,
                                       state, levels, levels2)
             else:
-                de = _cycle_correction(meta, levels, r, var, first)
-                _accumulate_(e_hi, e_lo, de)
-                if not last:
-                    _, levels2 = hier.get(sc_next, lr_next)
-                    r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
-                    l2_last = float(l2)
+                with tracing.span('emg3d.cycle.step', replayed=False):
+                    de = _cycle_correction(meta, levels, r, var, first)
+                    _accumulate_(e_hi, e_lo, de)
+                    if not last:
+                        _, levels2 = hier.get(sc_next, lr_next)
+                        r, l2 = _residual_norm_split(e_hi, e_lo, s,
+                                                     levels2[0])
+                        l2_last = _scalar(l2)
             var.sc_dir, var.lr_dir = sc_next, lr_next
             _after_first_cycle(var)
             first = False
@@ -1222,15 +1283,15 @@ def _dot(a, b):
     else:
         dev = a[0].layout.devices()[0]
         val = sum(x.vdot(y, dev) for x, y in zip(a, b))
-    return complex(val) if a[0].is_complex() else float(val)
+    return _scalar(val)
 
 
 def _norm_tup(a):
     if isinstance(a[0], torch.Tensor):
-        return float(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2)
-                                    for x in a)))
+        return _scalar(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2)
+                                      for x in a)))
     dev = a[0].layout.devices()[0]
-    return float(torch.sqrt(sum(x.sqsum(dev) for x in a)))
+    return _scalar(torch.sqrt(sum(x.sqsum(dev) for x in a)))
 
 
 def _axpy(a, alpha, b):
@@ -1504,7 +1565,7 @@ def residual(model, sfield, efield, norm=False, device=None):
     r = operator.residual(*_field_to_dev(sfield, device, lvl[0].dtype),
                           *_field_to_dev(efield, device, lvl[0].dtype), *lvl)
     if norm:
-        return float(operator.residual_norm(*r))
+        return _scalar(operator.residual_norm(*r))
     return _dev_to_field(r, sfield.grid, sfield._frequency,
                          sfield.field.dtype)
 
@@ -1556,8 +1617,7 @@ def restriction(model, sfield, res, sc_dir, device=None):
                 model.grid.h[i],
                 getattr(cgrid, 'nodes_' + c),
                 getattr(cgrid, 'cell_centers_' + c), ch[i])
-            rw.append(tuple(torch.from_numpy(x).to(device, dtypes[1])
-                            for x in w))
+            rw.append(tuple(_to_device(x, device, dtypes[1]) for x in w))
         else:
             rw.append(None)
 
@@ -1588,8 +1648,8 @@ def prolongation(efield, cefield, sc_dir, device=None):
         if coarsen[i]:
             idx, w = transfer.prolong_meta(
                 getattr(cgrid, 'nodes_' + c), getattr(grid, 'nodes_' + c))
-            pm.append((torch.from_numpy(idx).to(device),
-                       torch.from_numpy(w).to(device, dtypes[1])))
+            pm.append((_to_device(idx, device),
+                       _to_device(w, device, dtypes[1])))
         else:
             pm.append(None)
 

@@ -495,6 +495,33 @@ def test_graph_equals_per_operation(cuda, case, monkeypatch):
     assert runs[2][2] == (0, 0, 0, 0)
 
 
+@pytest.mark.cuda
+def test_launch_counts_are_what_ran(cuda, monkeypatch):
+    """32^3, the default solver: a solve's root span counts as launches
+    (``tracing.counts()``, wrapper launches plus replayed less captured)
+    the kernels the profiler saw run on the card, per operation, in the
+    solve that captures and in the one that replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emg3d_tpu_torch import northstar, solve, solver, tracing
+
+    solver._STEPS.clear()
+    for mode in ('0', 'auto', 'auto'):
+        monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', mode)
+        problem = northstar.triaxial_problem(32)
+        tracing.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve(*problem, tol=1e-6, **northstar.SOLVE_OPTIONS['triaxial'])
+            torch.cuda.synchronize()
+        (root,) = tracing.roots()
+        counts = root.attrs['counts']
+        ran = _run_on_card(prof)
+        assert (counts['launches.gs_phase'],
+                counts['launches.line_phase']) == ran
+        assert counts['kernel_launches'] == sum(ran) > 0
+        assert (counts['replayed_launches'] > 0) == (mode == 'auto')
+
+
 def _fresh_process(code):
     """Run ``code`` in a new interpreter from the repo root; its stdout."""
     import pathlib

@@ -46,14 +46,15 @@ import time
 import numpy as np
 import torch
 
-from emg3d_tpu_torch import northstar
+from emg3d_tpu_torch import northstar, tracing
 
 
 def host_stage(label, nsolves, fn):
     """Run ``fn`` (a stage of a survey) under ``cProfile``; print its wall
     time, the time inside and outside ``solve`` and the host functions
     with the most time of their own."""
-    with northstar.timed_solves() as inside:
+    tracing.clear()
+    with tracing.recording():
         prof = cProfile.Profile()
         t0 = time.perf_counter()
         prof.enable()
@@ -61,6 +62,7 @@ def host_stage(label, nsolves, fn):
         prof.disable()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    inside = [r.seconds for r in tracing.roots()]
     print(f"{label}: wall {wall!r} s under cProfile for {len(inside)} solves "
           f"(expected {nsolves}), {sum(inside)!r} s inside solve, "
           f"{wall - sum(inside)!r} s ({100 * (1 - sum(inside) / wall):.1f} %) "
