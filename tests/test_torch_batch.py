@@ -1,14 +1,13 @@
 """PyTorch port, the batch engine against ``emg3d_tpu.parallel.batch``.
 
-Both packages solve the same tasks in complex128 on the CPU (JAX in x64,
-the port with ``device='cpu'``): a random triaxial model on 8^3 cells of
-200 m, an inclined dipole at the centre, three frequencies (0.5, 1 and 2
-Hz: eta scales other than 1).  The JAX package compiles its batched
-executables per batch width, layout and smoother variant (its production
-configuration alone takes minutes), so the cases are spread over three
-files, each a few JAX compiles: this one (plain multigrid), and
-tests/test_torch_batch_krylov.py and tests/test_torch_batch_layouts.py,
-which import the problem from here.
+The port solves in complex128 on the CPU (``device='cpu'``): a random
+triaxial model on 8^3 cells of 200 m, an inclined dipole at the centre,
+three frequencies (0.5, 1 and 2 Hz: eta scales other than 1).  The
+answers of ``emg3d_tpu.parallel.batch.solve_batch_fields`` (JAX in x64 on
+the CPU, on the same inputs) are read from tests/data/torch_reference.npz,
+which tests/create_data/torch_reference.py writes from the JAX package;
+tests/test_torch_batch_krylov.py and tests/test_torch_batch_layouts.py
+import the problem from here.
 
 - ``solve_batch_fields`` lane by lane, the port against the JAX package,
   for plain multigrid with a shared eta and an already-converged warm
@@ -38,12 +37,12 @@ import threadpoolctl
 import torch
 from numpy.testing import assert_allclose
 
-import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu.parallel import batch as jbatch
 from emg3d_tpu_torch import models, solver
 from emg3d_tpu_torch.ops import operator, smoothers, transfer
 from emg3d_tpu_torch.parallel import batch as tbatch
+from torch_reference import Field, reference
 
 N = 8
 FREQS = [0.5, 1.0, 2.0]
@@ -84,13 +83,18 @@ def problem(mod, epsilon_r=False, zero=()):
     return model, sfields
 
 
-@functools.lru_cache(maxsize=None)
-def jax_solve(case, epsilon_r=False, warm=False):
-    """The JAX package's batched solve of one case, once per module."""
-    model, sfields = problem(e3, epsilon_r)
-    efields = jax_solve(case, epsilon_r)[0] if warm else None
-    return jbatch.solve_batch_fields(model, sfields, efields=efields,
-                                     **CASES[case])
+def batch_inputs(kw, epsilon_r=False, warm=False, zero=()):
+    """What a JAX batched solve of ``problem`` with solver options ``kw``
+    depends on (``warm``: started from its own converged fields)."""
+    return problem(t3, epsilon_r)[0], SOURCE, FREQS, kw, warm, zero
+
+
+def jax_solve(name, kw, epsilon_r=False, warm=False, zero=()):
+    """The JAX package's batched solve (``emg3d_tpu.parallel.batch
+    .solve_batch_fields``), read from tests/data/torch_reference.npz as
+    case ``name``: (lanes with a ``field``, info)."""
+    ref = reference(name, *batch_inputs(kw, epsilon_r, warm, zero))
+    return [Field(f) for f in ref['fields']], ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +119,8 @@ def assert_lanes(port, ref, tol=1e-10):
 
 
 def test_solve_batch_equals_jax():
-    port, ref = port_solve('plain'), jax_solve('plain')
+    port = port_solve('plain')
+    ref = jax_solve('batch.plain', CASES['plain'])
     assert_lanes(port, ref)
     assert port[1]['exit_messages'] == ['CONVERGED'] * len(FREQS)
     assert np.all(port[1]['rel_error'] < 1e-8)
@@ -123,7 +128,8 @@ def test_solve_batch_equals_jax():
 
 def test_warm_start_converged_does_nothing():
     port = port_solve('plain', warm=True)
-    assert_lanes(port, jax_solve('plain', warm=True))
+    assert_lanes(port, jax_solve('batch.plain.warm', CASES['plain'],
+                                 warm=True))
     assert port[1]['it_mg'] == 0
     assert port[1]['exit_messages'] == ['CONVERGED'] * len(FREQS)
     for a, b in zip(port[0], port_solve('plain')[0]):

@@ -1,18 +1,18 @@
 """PyTorch port, the batched MG-preconditioned BiCGSTAB against
 ``emg3d_tpu.parallel.batch``: the problem of tests/test_torch_batch.py
 (random triaxial model, 8^3 cells, three frequencies, complex128 on the
-CPU).
+CPU).  The JAX package's answer is read from
+tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).
 
 - BiCGSTAB preconditioned by F-cycles with semicoarsening and line
   relaxation, lane by lane against the JAX package to the tolerances of
   tests/test_torch_batch.py (the same ``it_ssl`` and ``it_mg``).  One
   fixed direction each (``semicoarsening=3``, ``linerelaxation=3``: no
-  z-coarsening, z-lines, a permuted frame): the JAX package compiles
-  every smoother variant of a cycling configuration, minutes for the
-  full one.  The full production configuration (sc cycling 1-2-3, lr
-  cycling 4-5-6) is held against the port's sequential ``solve`` in
-  tests/test_torch_batch.py and card against CPU in
-  tests/test_torch_cuda.py and ``chip_smoke.py``.
+  z-coarsening, z-lines, a permuted frame).  The full production
+  configuration (sc cycling 1-2-3, lr cycling 4-5-6) is held against
+  the port's sequential ``solve`` in tests/test_torch_batch.py and card
+  against CPU in tests/test_torch_cuda.py and ``chip_smoke.py``.
 - Active shrink of the batched BiCGSTAB (after its first step, tasks 1
   and 2 with zero sources) equals no shrink to 1e-12, in the port.
 """
@@ -22,10 +22,8 @@ import pytest
 import threadpoolctl
 import torch
 
-import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
-from emg3d_tpu.parallel import batch as jbatch
-from test_torch_batch import FREQS, assert_lanes, problem
+from test_torch_batch import FREQS, assert_lanes, jax_solve, problem
 
 KRYLOV = dict(sslsolver=True, semicoarsening=3, linerelaxation=3, tol=1e-8)
 
@@ -43,7 +41,7 @@ def _one_thread():
 
 def test_bicgstab_batch_equals_jax():
     out = t3.solve_batch_fields(*problem(t3), device='cpu', **KRYLOV)
-    ref = jbatch.solve_batch_fields(*problem(e3), **KRYLOV)
+    ref = jax_solve('batch.krylov', KRYLOV)
     assert_lanes(out, ref)
     assert out[1]['it_ssl'] > 0 and out[1]['it_mg'] > 0
     assert out[1]['exit_messages'] == ['CONVERGED'] * len(FREQS)

@@ -2,7 +2,9 @@
 ``emg3d_tpu.parallel.batch``: the problem of tests/test_torch_batch.py
 (random triaxial model, 8^3 cells, three frequencies, complex128 on the
 CPU), in the layouts for which the JAX package compiles its batched
-executables once more.
+executables once more.  The JAX package's answers are read from
+tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).
 
 - The stacked layout (``epsilon_r`` makes eta affine in s: one eta per
   task, stacked on the task axis) lane by lane against the JAX package,
@@ -13,19 +15,16 @@ executables once more.
   in the port to 1e-12, and equals the JAX package's shrink to 1e-10.
 """
 
-import functools
-
 import numpy as np
 import pytest
 import threadpoolctl
 import torch
 
-import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
-from emg3d_tpu.parallel import batch as jbatch
 from emg3d_tpu_torch import models, solver
 from emg3d_tpu_torch.parallel import batch as tbatch
-from test_torch_batch import CASES, FREQS, N, assert_lanes, problem
+from test_torch_batch import (CASES, FREQS, N, assert_lanes, jax_solve,
+                              problem)
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -43,8 +42,7 @@ def test_stacked_layout_equals_jax():
     model, sfields = problem(t3, epsilon_r=True)
     out = t3.solve_batch_fields(model, sfields, device='cpu',
                                 **CASES['plain'])
-    ref = jbatch.solve_batch_fields(*problem(e3, epsilon_r=True),
-                                    **CASES['plain'])
+    ref = jax_solve('batch.stacked', CASES['plain'], epsilon_r=True)
     assert_lanes(out, ref)
     assert out[1]['exit_messages'] == ['CONVERGED'] * len(FREQS)
     var = solver.MGParameters(verb=0, sslsolver=False, semicoarsening=False,
@@ -60,17 +58,18 @@ def test_stacked_layout_equals_jax():
 def test_shrink_equals_jax_and_no_shrink(monkeypatch, capsys):
     kw = dict(CASES['plain'], verb=4)
 
-    def run(mod, call):
-        model, sfields = problem(mod, zero=(1, 2))
-        return call(model, sfields, **kw)
+    def run():
+        model, sfields = problem(t3, zero=(1, 2))
+        return t3.solve_batch_fields(model, sfields, device='cpu', **kw)
 
-    ref_t = run(t3, functools.partial(t3.solve_batch_fields, device='cpu'))
+    ref_t = run()
     assert 'batch shrunk' not in capsys.readouterr().out
     monkeypatch.setenv('EMG3D_TPU_BATCH_SHRINK', '1')
-    out_t = run(t3, functools.partial(t3.solve_batch_fields, device='cpu'))
+    out_t = run()
     assert 'batch shrunk to 1/3 lanes' in capsys.readouterr().out
-    out_j = run(e3, jbatch.solve_batch_fields)
-    assert 'batch shrunk to 1/3 lanes' in capsys.readouterr().out
+    # The JAX package's run with EMG3D_TPU_BATCH_SHRINK=1, and its output.
+    out_j = jax_solve('batch.shrink', kw, zero=(1, 2))
+    assert 'batch shrunk to 1/3 lanes' in out_j[1]['stdout']
     assert_lanes(out_t, ref_t, tol=1e-12)
     assert_lanes(out_t, out_j)
     for f in out_t[0][1:]:

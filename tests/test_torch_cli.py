@@ -6,7 +6,9 @@ emg3d_tpu_torch``) against ``emg3d_tpu.cli``.
   the CPU; no key means the CUDA card, and on a host without one the run
   raises ``RuntimeError``).
 - Parity: one survey (with observed data) and one model at 16^3, written
-  with ``emg3d_tpu.save``, through the JAX CLI once (``-g``) and through
+  with ``emg3d_tpu.save``, through the JAX CLI once (``-g``; its output
+  read from tests/data/torch_reference.npz, written by
+  tests/create_data/torch_reference.py from the JAX package) and through
   the port's CLI with ``-f``, ``-m`` and ``-g`` (plain F-cycles, tol 1e-5,
   as in tests/test_cli.py): data, misfit and gradient to 1e-10 relative
   to the largest entry (complex128 both).
@@ -33,9 +35,9 @@ from numpy.testing import assert_allclose
 import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu import electrodes, meshes, surveys
-from emg3d_tpu.cli import main as j_cli
 from emg3d_tpu_torch.cli import main as cli
 from emg3d_tpu_torch.cli import parser as cli_parser
+from torch_reference import reference
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -66,6 +68,13 @@ def write_inputs(path, nx=16, observed=False, prop=1.0):
     """Survey + model files (``emg3d_tpu.save``, .h5) for a tiny
     fullspace run; ``observed`` gives the survey observed data made from
     a seed."""
+    survey, model = make_inputs(nx, observed, prop)
+    e3.save(os.path.join(path, 'survey.h5'), survey=survey, verb=0)
+    e3.save(os.path.join(path, 'model.h5'), model=model, verb=0)
+
+
+def make_inputs(nx=16, observed=False, prop=1.0):
+    """The survey and model of ``write_inputs``."""
     h = np.ones(nx) * 100.0
     grid = meshes.TensorMesh([h, h, h], origin=(-nx * 50.,) * 3)
     model = e3.Model(grid, property_x=prop)
@@ -80,9 +89,7 @@ def write_inputs(path, nx=16, observed=False, prop=1.0):
                        + 1j * rng.uniform(-0.3, 0.3, (1, 2, 1)))
     survey = surveys.Survey([src], recs, [1.0], relative_error=0.05,
                             data=data)
-
-    e3.save(os.path.join(path, 'survey.h5'), survey=survey, verb=0)
-    e3.save(os.path.join(path, 'model.h5'), model=model, verb=0)
+    return survey, model
 
 
 def write_cfg(path, extra="", device="cpu", tol=1e-3, simulation=""):
@@ -388,15 +395,22 @@ PARITY = dict(tol=1e-5, extra=NO_NOISE, simulation=(
     "gridding = same\nreceiver_interpolation = linear"))
 
 
+def parity_inputs():
+    """What the JAX CLI's ``-g`` run depends on: the inputs, the config's
+    options (no ``device``) and the flag."""
+    return (*make_inputs(observed=True), PARITY, None, '-g')
+
+
 @pytest.fixture(scope='module')
 def jax_cli_run(tmp_path_factory):
-    """The JAX CLI once (``-g``) on the 16^3 survey with observed data:
-    its output and the directory of its input files."""
+    """The output of the JAX CLI's ``-g`` run on the 16^3 survey with
+    observed data (its keys, and the values of ``data``, ``misfit``,
+    ``gradient`` and ``n_observations``), and the directory of its input
+    files."""
     path = str(tmp_path_factory.mktemp('jax_cli'))
     write_inputs(path, observed=True)
-    fname = write_cfg(path, device=None, **PARITY)
-    j_cli([fname, '-g'])
-    return e3.load(os.path.join(path, 'emg3d_out.h5'), verb=0), path
+    stored = reference('cli.gradient', *parity_inputs())
+    return {key: stored.get(key) for key in stored['keys']}, path
 
 
 @pytest.mark.parametrize('flag', ['-f', '-m', '-g'])

@@ -15,13 +15,14 @@ on the same static buffers.  Here, with ``device='cpu'``:
 - ``verb=4`` runs the per-operation cycle and prints the cycle-QC;
 - the level trace of the per-operation cycle (``var.level_all``, which
   the cycle-QC draws) equals the JAX package's, smoothing call by
-  smoothing call, for F, W and V cycles at 16^3 with ``nu_init=1``;
+  smoothing call, for F, W and V cycles at 16^3 with ``nu_init=1`` (the
+  JAX package's trace read from tests/data/torch_reference.npz, written
+  by tests/create_data/torch_reference.py from the JAX package);
 - the step cache stays within its bound;
 - ``auto`` is off on the CPU, and the switch is read on every solve.
 
 The case against the JAX package's own solve, ``test_steps_against_jax``,
-lies in tests/test_torch_inversion.py, where it shares the JAX solver's
-compilation (some 35 s) with the inversion's 8^3 evaluation.
+lies in tests/test_torch_inversion.py.
 """
 
 import numpy as np
@@ -30,9 +31,9 @@ import threadpoolctl
 import torch
 
 from emg3d_tpu import fields, meshes, models
-from emg3d_tpu import solver as j_solver
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.convert import from_emg3d_tpu
+from torch_reference import reference
 
 SHAPE = (16, 8, 8)
 OPTIONS = {'plain': dict(plain=True), 'default': {}}
@@ -140,25 +141,28 @@ def recording(made, key, cls):
     return make
 
 
+def trace_options(cycle):
+    return dict(plain=True, cycle=cycle, nu_init=1, maxit=4, verb=4)
+
+
 @pytest.mark.parametrize('cycle', ['F', 'W', 'V'])
 def test_level_trace_against_jax(cycle, monkeypatch, capsys):
     """``var.level_all`` of a per-operation 16^3 solve equals the JAX
     package's (``capsys`` takes the verb=4 output, which is not read)."""
     made = {}
-    for key, mod in (('jax', j_solver), ('port', t_solver)):
-        monkeypatch.setattr(mod, 'MGParameters',
-                            recording(made, key, mod.MGParameters))
-    kw = dict(plain=True, cycle=cycle, nu_init=1, maxit=4, verb=4)
-    model, sfield = problem((16, 16, 16))
-    monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', '0')
-    _, jinfo = j_solver.solve(model, sfield, return_info=True, **kw)
+    monkeypatch.setattr(t_solver, 'MGParameters',
+                        recording(made, 'port', t_solver.MGParameters))
+    kw = trace_options(cycle)
+    # The JAX package's solve with EMG3D_TPU_CYCLE_JIT=0: its info, the
+    # level_all of its MGParameters and their _cycle_qc.
+    ref = reference(f'cycle_graph.trace.{cycle}', *problem((16, 16, 16)),
+                    kw)
     _, info = port_solve('0', monkeypatch, (16, 16, 16), **kw)
-    assert info['it_mg'] == jinfo['it_mg'] > 1
+    assert info['it_mg'] == ref['it_mg'] > 1
     trace = made['port'].level_all
     assert len(trace) > 4 * info['it_mg'] and max(trace) == 3
-    assert trace == made['jax'].level_all
-    assert (t_solver._cycle_qc(made['port'])
-            == j_solver._cycle_qc(made['jax']))
+    assert trace == ref['level_all'].tolist()
+    assert t_solver._cycle_qc(made['port']) == ref['cycle_qc']
 
 
 @pytest.mark.parametrize('mode', ['auto', '0'])

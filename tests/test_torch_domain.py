@@ -14,9 +14,11 @@ equal to its unsharded one.  Here, in complex128:
 - the port's sharded solve over ``['cpu'] * 8`` against the JAX
   package's unsharded ``solver.solve`` for the cases of
   tests/test_domain.py (16^3, tol 5e-5; the semicoarsening and line
-  relaxation case, whose JAX solve compiles for minutes, in
-  tests/test_torch_domain_sclr.py): the same ``it_mg``, fields to 1e-10,
-  and against the port's unsharded solve to 1e-12;
+  relaxation case in tests/test_torch_domain_sclr.py): the same
+  ``it_mg``, fields to 1e-10, and against the port's unsharded solve to
+  1e-12.  The JAX package's solves are read from
+  tests/data/torch_reference.npz (written by
+  tests/create_data/torch_reference.py from the JAX package);
 - a grid too small to shard runs replicated, on the mesh's first device.
 """
 
@@ -25,13 +27,15 @@ import pytest
 import threadpoolctl
 import torch
 
-import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu.parallel import domain as jdomain
 from emg3d_tpu_torch import models, solver
 from emg3d_tpu_torch.ops import smoothers
 from emg3d_tpu_torch.parallel import domain
+from torch_reference import Field, reference
 
+SOURCE = (0., 0., 0., 0., 0.)
+FREQUENCY = 0.9
 CASES = {
     'plain': dict(plain=True),
     'sclr': dict(sslsolver=False, semicoarsening=True, linerelaxation=1),
@@ -67,17 +71,28 @@ def problem(mod, n=16, stretched=False, anisotropic=False):
             property_z=rng.uniform(0.5, 2.0, grid.n_cells))
     else:
         model = mod.Model(grid, property_x=1.0)
-    sfield = mod.get_source_field(grid, source=(0., 0., 0., 0., 0.),
-                                  frequency=0.9)
+    sfield = mod.get_source_field(grid, source=SOURCE, frequency=FREQUENCY)
     return model, sfield
 
 
-def solve_case(case):
-    """(JAX unsharded, port unsharded, port sharded over ['cpu'] * 8):
-    each (field, info)."""
+def case_setup(case):
+    """(``problem`` arguments, solver options) of ``case``."""
     kw = dict(tol=5e-5, maxit=30, verb=0, return_info=True, **CASES[case])
-    args = dict(stretched=case == 'sclr', anisotropic=case != 'plain')
-    ref = e3.solve(*problem(e3, **args), **kw)
+    return dict(stretched=case == 'sclr', anisotropic=case != 'plain'), kw
+
+
+def case_inputs(case):
+    """What the JAX package's solve of ``case`` depends on."""
+    args, kw = case_setup(case)
+    return problem(t3, **args)[0], SOURCE, FREQUENCY, kw
+
+
+def solve_case(case):
+    """(JAX unsharded, read from tests/data/torch_reference.npz; port
+    unsharded; port sharded over ['cpu'] * 8): each (field, info)."""
+    args, kw = case_setup(case)
+    ref = reference(f'domain.{case}', *case_inputs(case))
+    ref = Field(ref['field']), ref
     one = t3.solve(*problem(t3, **args), device='cpu', **kw)
     mesh = domain.make_grid_mesh(devices=['cpu'] * 8)
     sharded = t3.solve(*problem(t3, **args), mesh=mesh, **kw)

@@ -4,10 +4,13 @@
   neither ``jax`` nor ``emg3d_tpu`` can be imported.
 - ``torch_03_transient_fullspace.py --cpu`` (the layered engine, seconds)
   returns the transient of ``03_transient_fullspace.py``, whose calls
-  run inline here with the JAX package, to 1e-8; its error against the
-  closed form is the one that example prints.  Both packages' DLF
-  filters (cached per process, and dependent on the BLAS threads they
-  were designed with) are designed anew on this module's one thread.
+  with the JAX package (``jax_transient``) are read from
+  tests/data/torch_reference.npz (written by
+  tests/create_data/torch_reference.py from the JAX package), to 1e-8;
+  its error against the closed form is the one that example prints.  The
+  port's DLF filters (cached per process, and dependent on the BLAS
+  threads they were designed with) are designed anew on this module's
+  one thread, as the JAX package's were for the file.
 The other two examples solve in 3-D on the card (``chip_smoke.py`` runs
 them there).
 """
@@ -29,6 +32,7 @@ import alternatives
 import emg3d_tpu as e3
 from emg3d_tpu import layered
 from emg3d_tpu_torch import transforms as t_transforms
+from torch_reference import reference
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EXAMPLES = sorted(p.name for p in (ROOT / 'examples').glob('torch_0*.py'))
@@ -78,25 +82,32 @@ def test_example_imports_without_jax(name):
     assert out.stdout.splitlines()[-1] == '[]'
 
 
-def test_transient_example_equals_jax_example():
-    for mod in (e3.transforms, t_transforms):
-        mod.design_filter.cache_clear()
-        mod.design_hankel_filter.cache_clear()
-    example = load_example('torch_03_transient_fullspace.py')
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        out = example.main(['--cpu'])
+# (times, offset, resistivity) of examples/03_transient_fullspace.py.
+TRANSIENT = (np.logspace(-2, 1, 13), 900.0, 1.0)
 
-    # The calls of examples/03_transient_fullspace.py, with the JAX
-    # package.
-    times, offset, res = np.logspace(-2, 1, 13), 900.0, 1.0
+
+def jax_transient(times, offset, res):
+    """The calls of examples/03_transient_fullspace.py, with the JAX
+    package: the transient at ``offset`` in a fullspace of ``res``."""
     fourier = e3.Fourier(time=times, fmin=1e-3, fmax=1e2, signal=-1,
                          verb=0)
     fresp = np.array([
         layered.dipole_layered((0, 0, 0, 0, 0), [(offset, 0, 0, 0, 0)],
                                [], [res], f)[0]
         for f in fourier.freq_compute])
-    ref = np.asarray(fourier.freq2time(fresp, offset)).ravel()
+    return np.asarray(fourier.freq2time(fresp, offset)).ravel()
+
+
+def test_transient_example_equals_jax_example():
+    t_transforms.design_filter.cache_clear()
+    t_transforms.design_hankel_filter.cache_clear()
+    example = load_example('torch_03_transient_fullspace.py')
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = example.main(['--cpu'])
+
+    times, offset, res = TRANSIENT
+    ref = reference('examples.transient', *TRANSIENT)['transient']
     exact = alternatives.fullspace_dipole_time(
         np.array([[offset, 0., 0.]]), (0., 0., 0.), times, res,
         signal=-1)[:, 0, 0]

@@ -8,11 +8,14 @@ gradient comes back through the volume averages' adjoint.  Both packages
 run in complex128 on the CPU (JAX in x64, the port with
 ``device='cpu'``), plain multigrid V-cycles to ``TOL``, with shape
 classes off (grids of (24, 16, 16) and (24, 16, 24)) and at 1.7 (both
-(24, 16, 24), the first padded): the JAX side compiles for two grid
-shapes.  Each JAX simulation is built once for the module.  ``TOL`` is
-loose because both packages run the same cycles (``it_mg`` is held
-equal), so they agree to rounding whatever it is, and the port's plain
-versions take some 0.25 s per cycle on these grids.
+(24, 16, 24), the first padded).  Each JAX simulation is rebuilt (its
+``from_dict``) from what it stored, ``to_dict('computed')`` without the
+fields no test reads, beside its results: read from
+tests/data/torch_reference.npz, which tests/create_data/torch_reference.py
+writes from the JAX package.  ``TOL`` is loose because both packages run
+the same cycles (``it_mg`` is held equal), so they agree to rounding
+whatever it is, and the port's plain versions take some 0.25 s per cycle
+on these grids.
 
 - The port's task loop against the JAX task loop: the grids bit for bit,
   the same ``it_mg`` per task, synthetic data, misfit, gradient and
@@ -45,6 +48,7 @@ import emg3d_tpu_torch as t3
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch.parallel import tasks as t_tasks
+from torch_reference import reference
 
 FREQS = (0.5, 2.0)
 TOL = 1e-3
@@ -66,6 +70,12 @@ def auto_sim(mod, shape_classes, frequencies=FREQS, tol=TOL, **kwargs):
     """The simulation of tests/test_simulations.py::TestAutoGridding with
     ``gridding='frequency'``, linear receiver interpolation (an exact
     gradient) and plain multigrid V-cycles to ``tol``."""
+    return mod.Simulation(**auto_inputs(mod, shape_classes, frequencies,
+                                        tol, **kwargs))
+
+
+def auto_inputs(mod, shape_classes, frequencies=FREQS, tol=TOL, **kwargs):
+    """The arguments of ``auto_sim``'s simulation."""
     h = np.ones(16) * 200.0
     grid = mod.TensorMesh([h, h, h], origin=(-1600.,) * 3)
     model = mod.Model(grid, property_x=1.0, mapping='Resistivity')
@@ -77,7 +87,7 @@ def auto_sim(mod, shape_classes, frequencies=FREQS, tol=TOL, **kwargs):
                         relative_error=0.05)
     if mod is t3:
         kwargs['device'] = 'cpu'
-    return mod.Simulation(
+    return dict(
         survey=survey, model=model, gridding='frequency',
         shape_classes=shape_classes, tqdm_opts=False,
         receiver_interpolation='linear',
@@ -106,11 +116,13 @@ def run(sim, jvec=True):
 
 @pytest.fixture(scope='module')
 def ref():
-    """{shape_classes: (the computed JAX simulation, its results)}."""
+    """{shape_classes: (the computed JAX simulation, its results)}: the
+    JAX simulation rebuilt from the file."""
     out = {}
     for classes in CLASSES:
-        sim = auto_sim(e3, classes)
-        out[classes] = (sim, run(sim))
+        stored = reference(f'gridding.{classes}', auto_inputs(t3, classes))
+        out[classes] = (e3.Simulation.from_dict(stored['simulation']),
+                        stored['results'])
     return out
 
 

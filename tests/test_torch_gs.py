@@ -4,9 +4,12 @@ The plain PyTorch phase (``smoothers._gauss_seidel_phase_torch``, the
 reference the CUDA kernel is held against) must agree with
 ``emg3d_tpu.ops.smoothers.gauss_seidel_phase`` and with the split-real
 core of the Pallas kernels (``pallas_gs.gauss_seidel_phase_split``) for
-every color, complex128 on the CPU, rtol 1e-12.  The kernel itself runs
-only on a CUDA card: tests/test_torch_cuda.py holds it against this plain
-version there.
+every color, complex128 on the CPU, rtol 1e-12; so must the two-color
+sweep (``gauss_seidel_sweep``), rtol 1e-11.  The JAX package's phases and
+sweeps are read from tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).  The kernel
+itself runs only on a CUDA card: tests/test_torch_cuda.py holds it
+against this plain version there.
 """
 
 import itertools
@@ -20,6 +23,7 @@ from numpy.testing import assert_allclose
 from emg3d_tpu.ops import pallas_gs, smoothers
 from emg3d_tpu_torch.ops import _build, gs_phase
 from emg3d_tpu_torch.ops import smoothers as t_smoothers
+from torch_reference import fields, reference
 
 COLORS = list(itertools.product((0, 1), repeat=3))
 
@@ -66,11 +70,19 @@ def _close(out, ref, rtol):
         assert_allclose(a.cpu().numpy(), np.asarray(b), rtol=rtol)
 
 
+def phase_case(color):
+    """The name of a case of test_plain_phase_equals_jax."""
+    return 'gs.phase.' + ''.join(map(str, color))
+
+
 @pytest.mark.parametrize('color', COLORS)
 def test_plain_phase_equals_jax(color):
     prob = _random_problem()
-    ref = smoothers.gauss_seidel_phase(*_jax(*prob), *color)
-    spl = pallas_gs.gauss_seidel_phase_split(*_jax(*prob), *color)
+    # smoothers.gauss_seidel_phase and pallas_gs.gauss_seidel_phase_split
+    # of the JAX package on the same operands.
+    stored = reference(phase_case(color), prob, color)
+    ref = fields(stored['phase'], prob[0])
+    spl = fields(stored['split'], prob[0])
     args = _torch(*prob)
     out = t_smoothers.gauss_seidel_phase(*args, *color)
     assert all(a is b for a, b in zip(out, args[:3]))     # in place
@@ -80,8 +92,11 @@ def test_plain_phase_equals_jax(color):
 
 def test_full_sweep_equals_jax():
     prob = _random_problem(seed=11)
+    # smoothers.gauss_seidel_sweep of the JAX package, each direction, on
+    # prob as it is then: the port's sweep relaxes prob's arrays in place.
+    stored = reference('gs.sweep', prob)
     for reverse in (False, True):
-        ref = smoothers.gauss_seidel_sweep(*_jax(*prob), reverse)
+        ref = fields(stored[str(reverse)], prob[0])
         out = t_smoothers.gauss_seidel_sweep(*_torch(*prob), reverse)
         _close(out, ref, 1e-11)
 

@@ -11,13 +11,16 @@ CPU:
   VTI and triaxial models;
 - ``minimize``'s smoothness wiring on the stubs (after
   tests/test_inversion.py), both packages to the same model;
-- one objective evaluation of a real 8^3 survey (plain F-cycles, so the
-  JAX package compiles little): data, misfit and gradient to 1e-8;
+- one objective evaluation of a real 8^3 survey (plain F-cycles): data,
+  misfit and gradient to 1e-8;
 - the whole-cycle step that every evaluation's solves replay on the card
   (``EMG3D_TPU_CYCLE_JIT=1``; on the CPU it runs its body uncaptured)
   against the JAX package's per-operation solve at 8^3, plain F-cycles,
-  to the tolerances of tests/test_torch_solver.py.  It runs after the
-  evaluation, whose compilation of the JAX solver it shares.
+  to the tolerances of tests/test_torch_solver.py.
+
+The JAX package's evaluation and solve are read from
+tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).
 
 The three slow inversions of tests/test_inversion.py run on the port
 alone, marked ``slow`` as there.
@@ -31,11 +34,11 @@ from numpy.testing import assert_allclose
 
 import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
-from emg3d_tpu import solver
 from emg3d_tpu.inversion import native as j_native
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch.inversion import native
+from torch_reference import Field, reference
 
 PACKAGES = ((e3, j_native), (t3, native))
 CASES = {'isotropic': (), 'VTI': ('property_z',),
@@ -202,37 +205,54 @@ def small_survey(mod):
         frequencies=1.0, noise_floor=1e-17, relative_error=0.01)
 
 
-def test_evaluation_against_jax():
-    """One objective evaluation of an 8^3 survey (a conductive block,
-    observed by the port, from a rough start) in both packages."""
+def evaluation_inputs():
+    """(widths, true and start models, solver options) of
+    test_evaluation_against_jax."""
     rng = np.random.default_rng(12)
     h = rng.uniform(80.0, 120.0, 8)
     lg_true = np.zeros((8, 8, 8))
     lg_true[2:5, 3:6, 3:6] = -0.7
     lg0 = 0.1 * rng.standard_normal((8, 8, 8))
     sopts = {'plain': True, 'tol': 1e-7, 'verb': 0}
-    observed, out = None, {}
-    for mod, nat in PACKAGES[::-1]:
-        grid = mod.TensorMesh([h, h, h], origin=(-0.5 * h.sum(),) * 3)
-        survey = small_survey(mod)
-        if observed is None:
-            true = survey_sim(mod, grid, lg_true, survey,
-                              solver_opts=sopts)
-            true.compute(observed=True, add_noise=False)
-            observed = np.asarray(survey.data.observed).copy()
-        survey.data['observed'] = observed
-        sim = survey_sim(mod, grid, lg0, survey, solver_opts=sopts)
-        fun, _, m0 = nat._make_objective(sim)
-        phi, grad = fun(m0)
-        out[mod] = (np.asarray(sim.data.synthetic).copy(), phi, grad)
+    return h, lg_true, lg0, sopts
+
+
+def evaluate(mod, nat, observed=None):
+    """One objective evaluation by package ``mod`` (observed data by the
+    same package where ``observed`` is None): observed, and (synthetic,
+    phi, gradient)."""
+    h, lg_true, lg0, sopts = evaluation_inputs()
+    grid = mod.TensorMesh([h, h, h], origin=(-0.5 * h.sum(),) * 3)
+    survey = small_survey(mod)
+    if observed is None:
+        true = survey_sim(mod, grid, lg_true, survey, solver_opts=sopts)
+        true.compute(observed=True, add_noise=False)
+        observed = np.asarray(survey.data.observed).copy()
+    survey.data['observed'] = observed
+    sim = survey_sim(mod, grid, lg0, survey, solver_opts=sopts)
+    fun, _, m0 = nat._make_objective(sim)
+    phi, grad = fun(m0)
+    return observed, (np.asarray(sim.data.synthetic).copy(), phi, grad)
+
+
+def test_evaluation_against_jax():
+    """One objective evaluation of an 8^3 survey (a conductive block,
+    observed by the port, from a rough start) in both packages; the JAX
+    package's evaluation, of the port's observed data, is read from the
+    file (it was made from them)."""
+    out = {}
+    _, out[t3] = evaluate(t3, native)
+    ref = reference('inversion.evaluation', *evaluation_inputs(),
+                    small_survey(t3))
+    out[e3] = ref['synthetic'], ref['phi'], ref['gradient']
     for a, b in zip(out[t3], out[e3]):
         assert np.all(np.isfinite(a)) and np.abs(b).max() > 0
         assert_allclose(a, b, rtol=1e-8, atol=1e-8 * np.abs(b).max())
 
 
-def test_steps_against_jax(monkeypatch):
-    """``=1`` on the CPU against the JAX package's per-operation solve:
-    a triaxial model on a stretched 8^3 grid, plain F-cycles."""
+def steps_problem():
+    """A triaxial model on a stretched 8^3 grid and its source field, in
+    the JAX package's classes."""
     rng = np.random.default_rng(8)
     h = [rng.uniform(40, 80, 8) for _ in range(3)]
     grid = e3.TensorMesh(h, origin=tuple(-0.5 * x.sum() for x in h))
@@ -240,9 +260,16 @@ def test_steps_against_jax(monkeypatch):
     model = e3.Model(grid, property_x=rng.uniform(1, 3, cells),
                      property_y=2.0, property_z=rng.uniform(2, 5, cells))
     sfield = e3.get_source_field(grid, (0., 0., 0., 0., 0.), 1.0)
-    monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', '0')
-    jfield, jinfo = solver.solve(model, sfield, plain=True, tol=1e-6,
-                                 return_info=True)
+    return model, sfield
+
+
+def test_steps_against_jax(monkeypatch):
+    """``=1`` on the CPU against the JAX package's per-operation solve
+    (``EMG3D_TPU_CYCLE_JIT=0``): a triaxial model on a stretched 8^3
+    grid, plain F-cycles."""
+    model, sfield = steps_problem()
+    jinfo = reference('inversion.steps', model, sfield)
+    jfield = Field(jinfo['field'])
     monkeypatch.setenv('EMG3D_TPU_CYCLE_JIT', '1')
     t_solver._STEPS.clear()
     t_solver.reset_counts()

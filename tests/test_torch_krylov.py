@@ -8,7 +8,10 @@ native Krylov solvers (BiCGSTAB, CGS, GCROT(m,k)) on an 8^3 operator
 without preconditioner: the same ``info``, iterate to rtol 1e-10.  The
 Field-level wrappers ``residual``, ``restriction``, ``prolongation`` and
 ``RegularGridProlongator`` and ``smoothing`` agree with the JAX
-package's to 1e-12.
+package's to 1e-12; the JAX package's answers of ``smoothing``,
+``residual``, ``restriction`` and ``prolongation`` are read from
+tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).
 """
 
 import itertools
@@ -26,6 +29,7 @@ from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch import models as t_models
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch.ops import operator as t_operator
+from torch_reference import reference
 
 SHAPES = list(itertools.product((2, 3, 4), repeat=3))
 
@@ -226,12 +230,22 @@ def test_krylov_equals_jax(krylov_problem, name, tol, maxit, kw):
 
 @pytest.fixture(scope='module')
 def wrapper_problem():
+    return make_wrapper_problem()
+
+
+def make_wrapper_problem():
     vm, tvm, sfield = _problem((8, 6, 4), seed=9)
     rng = np.random.default_rng(10)
     n = sfield.field.size
     data = 1e-3 * (rng.normal(size=n) + 1j * rng.normal(size=n))
     efield = fields.Field(sfield.grid, data=data, frequency=0.9)
     return vm, tvm, sfield, efield
+
+
+def wrapper_inputs(vm, sfield, efield):
+    """What the JAX package's Field-level wrappers compute from."""
+    return ([getattr(vm, k) for k in ('eta_x', 'eta_y', 'eta_z', 'zeta')],
+            vm.grid.h, sfield, efield)
 
 
 def _t(obj):
@@ -243,43 +257,48 @@ def test_smoothing_wrapper(wrapper_problem, lr_dir):
     """The Field-level wrapper against the JAX package's: the point
     smoother at lr_dir 0, y- then z-lines at lr_dir 4, nu=1."""
     vm, tvm, sfield, efield = wrapper_problem
-    ref = efield.copy()
-    solver.smoothing(vm, sfield, ref, 1, lr_dir)
+    # solver.smoothing(vm, sfield, ref, 1, lr_dir) on ref = efield.copy()
+    ref = reference(f'krylov.smoothing.{lr_dir}',
+                    *wrapper_inputs(vm, sfield, efield))['field']
     out = _t(efield.copy())
     t_solver.smoothing(tvm, _t(sfield), out, 1, lr_dir, device='cpu')
-    assert_allclose(out.field, ref.field, rtol=1e-12,
-                    atol=1e-12 * np.abs(ref.field).max())
+    assert_allclose(out.field, ref, rtol=1e-12,
+                    atol=1e-12 * np.abs(ref).max())
     assert not np.allclose(out.field, efield.field)
 
 
 def test_residual_restriction_prolongation_wrappers(wrapper_problem):
     vm, tvm, sfield, efield = wrapper_problem
-    res = solver.residual(vm, sfield, efield)
+    # The JAX package's residual, restriction and prolongation (see
+    # jax_wrappers in tests/create_data/torch_reference.py).
+    ref = reference('krylov.wrappers', *wrapper_inputs(vm, sfield, efield))
+    res = ref['residual']
     tres = t_solver.residual(tvm, _t(sfield), _t(efield), device='cpu')
-    assert_allclose(tres.field, res.field, rtol=1e-12,
-                    atol=1e-12 * np.abs(res.field).max())
+    assert_allclose(tres.field, res, rtol=1e-12,
+                    atol=1e-12 * np.abs(res).max())
     assert_allclose(
         t_solver.residual(tvm, _t(sfield), _t(efield), True, device='cpu'),
-        solver.residual(vm, sfield, efield, True), rtol=1e-12)
+        ref['residual_norm'], rtol=1e-12)
 
     for sc_dir in range(4):
-        cm, cs, ce = solver.restriction(vm, sfield, res, sc_dir)
+        cm, cs, ce = (ref[f'{sc_dir}'][k] for k in ('model', 'sfield',
+                                                    'efield'))
         tcm, tcs, tce = t_solver.restriction(tvm, _t(sfield), tres, sc_dir,
                                              device='cpu')
-        assert tcs.grid.shape_cells == cs.grid.shape_cells
-        assert_allclose(tcs.field, cs.field, rtol=1e-12,
-                        atol=1e-12 * np.abs(cs.field).max())
+        assert tcs.grid.shape_cells == tuple(cs['shape_cells'])
+        assert_allclose(tcs.field, cs['field'], rtol=1e-12,
+                        atol=1e-12 * np.abs(cs['field']).max())
         for name in ('eta_x', 'eta_y', 'eta_z', 'zeta'):
-            assert_allclose(getattr(tcm, name), getattr(cm, name),
+            assert_allclose(getattr(tcm, name), cm[name],
                             rtol=1e-14)
-        assert not tce.field.any() and tce.field.shape == ce.field.shape
+        assert not tce.field.any() and tce.field.shape == tuple(ce['shape'])
 
         # Prolong the restricted residual back, onto the fine field.
-        fine, tfine = efield.copy(), _t(efield.copy())
-        solver.prolongation(fine, cs, sc_dir)
+        fine = ref[f'{sc_dir}']['prolonged']
+        tfine = _t(efield.copy())
         t_solver.prolongation(tfine, tcs, sc_dir, device='cpu')
-        assert_allclose(tfine.field, fine.field, rtol=1e-12,
-                        atol=1e-12 * np.abs(fine.field).max())
+        assert_allclose(tfine.field, fine, rtol=1e-12,
+                        atol=1e-12 * np.abs(fine).max())
 
 
 def test_regular_grid_prolongator():

@@ -3,10 +3,12 @@ package.
 
 ``transforms``, ``layered`` and ``time`` are copies: on the inputs of the
 JAX package's own tests (tests/test_layered.py, tests/test_time.py) they
-must give identical arrays.  ``parallel.tasks.layered`` and
-``Simulation(layered=True)`` give the same responses and the same
-finite-difference gradient (identical arrays too: no solver is involved),
-and keep the JAX package's error messages.
+must give identical arrays (the JAX package's two filter designs, seconds
+of least squares each, read from tests/data/torch_reference.npz, written
+by tests/create_data/torch_reference.py from the JAX package).
+``parallel.tasks.layered`` and ``Simulation(layered=True)`` give the same
+responses and the same finite-difference gradient (identical arrays too:
+no solver is involved), and keep the JAX package's error messages.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from emg3d_tpu_torch import time as t_time
 from emg3d_tpu_torch import transforms as t_transforms
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch.parallel import tasks as t_tasks
+from torch_reference import fields, reference
 
 MODS = {'transforms': (transforms, t_transforms),
         'layered': (layered, t_layered), 'time': (time, t_time)}
@@ -119,10 +122,21 @@ def _fourier(mod, ft):
             f.freq2time(fdata, 900.0)]
 
 
+# The calls whose JAX answers are read from the file, designed there on
+# one BLAS thread: the port's are designed anew on this module's one.
+STORED = ('design_filter', 'design_hankel_filter')
+
+
 @pytest.mark.parametrize('name', sorted(CALLS))
 def test_identical_arrays(name):
     key, call = CALLS[name]
-    ref, out = (call(mod) for mod in MODS[key])
+    jmod, tmod = MODS[key]
+    if name in STORED:
+        getattr(tmod, name).cache_clear()
+        ref = fields(reference(f'layered.{name}', name))
+    else:
+        ref = call(jmod)
+    out = call(tmod)
     assert len(out) == len(ref) > 0
     for a, b in zip(out, ref):
         assert np.asarray(a).dtype == np.asarray(b).dtype

@@ -6,14 +6,15 @@ reference the ``line_phase`` CUDA kernel is held against) must agree with
 for every axis and color, on an even and an odd stretched shape, in
 complex128 and float64 on the CPU, to rtol 1e-12; so must the batched
 5x5 solve and the block-Thomas solve on random diagonally dominant
-complex-symmetric blocks.  The kernel itself runs only on a CUDA card:
+complex-symmetric blocks.  The JAX package's phases and its two-sweep
+``gauss_seidel_line`` are read from tests/data/torch_reference.npz
+(written by tests/create_data/torch_reference.py from the JAX package,
+with its scans not unrolled).  The kernel itself runs only on a CUDA card:
 tests/test_torch_cuda.py holds it against this plain version there.
 """
 
-import functools
 import itertools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from numpy.testing import assert_allclose
 from emg3d_tpu.ops import smoothers
 from emg3d_tpu_torch.ops import line_phase
 from emg3d_tpu_torch.ops import smoothers as t_smoothers
+from torch_reference import fields, reference
 
 SHAPES = [(6, 4, 8), (5, 7, 3)]
 
@@ -30,7 +32,7 @@ SHAPES = [(6, 4, 8), (5, 7, 3)]
 @pytest.fixture(scope='module', autouse=True)
 def _one_thread():
     # One torch thread; the JAX scans not unrolled (the unroll changes no
-    # arithmetic, only the compile time, which is most of this file's).
+    # arithmetic, only the compile time).
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
@@ -122,21 +124,26 @@ def test_block_thomas():
     assert_allclose(res, rhs, rtol=1e-12, atol=1e-12 * np.abs(rhs).max())
 
 
-@functools.partial(jax.jit, static_argnames=('colors', 'axis'))
-def _jax_phases(args, colors, axis):
-    """Each color's phase on the same operands (one compile per case)."""
-    return [smoothers.gauss_seidel_line_phase(*args, *c, axis)
-            for c in colors]
+def phases_case(axis, shape, complex_):
+    """The name of a case of test_line_phase_equals_jax."""
+    return f"line.phases.{axis}.{'x'.join(map(str, shape))}.{complex_}"
+
+
+def phases_inputs(axis, shape, complex_):
+    """(operands, colors, axis) of a case of test_line_phase_equals_jax."""
+    colors = tuple(t_smoothers.line_phase_colors(shape, axis, False))
+    return _problem(shape, complex_), colors, axis
 
 
 @pytest.mark.parametrize('complex_', [True, False])
 @pytest.mark.parametrize('shape', SHAPES)
 @pytest.mark.parametrize('axis', [0, 1, 2])
 def test_line_phase_equals_jax(axis, shape, complex_):
-    prob = _problem(shape, complex_)
-    colors = tuple(t_smoothers.line_phase_colors(shape, axis, False))
+    prob, colors, _ = inputs = phases_inputs(axis, shape, complex_)
     assert len(colors) == 4
-    refs = _jax_phases(_jax(prob), colors, axis)
+    # Each color's smoothers.gauss_seidel_line_phase on the same operands.
+    ref = reference(phases_case(axis, shape, complex_), *inputs)
+    refs = [fields(ref[str(i)], prob[:3]) for i in range(len(colors))]
     for color, ref in zip(colors, refs):
         args = _torch(prob)
         out = t_smoothers.gauss_seidel_line_phase(*args, *color, axis)
@@ -159,8 +166,8 @@ def test_plain_calls_counted_only_on_cuda():
 def test_gauss_seidel_line_nu2():
     shape = (5, 7, 3)
     prob = _problem(shape, True, seed=12)
-    ref = jax.jit(smoothers.gauss_seidel_line, static_argnums=(13, 14))(
-        *_jax(prob), 2, 1)
+    # smoothers.gauss_seidel_line(*prob, 2, 1) of the JAX package.
+    ref = fields(reference('line.nu2', prob, 2, 1))
     out = t_smoothers.gauss_seidel_line(*_torch(prob), 2, 1)
     _close(out, ref)
 

@@ -2,7 +2,11 @@
 
 Same numpy inputs through ``emg3d_tpu.ops`` (JAX, x64 on the CPU) and
 ``emg3d_tpu_torch.ops`` (complex128 on the CPU); results agree to
-rtol 1e-12 (same arithmetic, possibly another summation order).
+rtol 1e-12 (same arithmetic, possibly another summation order).  The
+JAX package's ``amat_x``, ``residual`` and ``residual_norm``, whose
+operations compile one by one for seconds, are read from
+tests/data/torch_reference.npz (written by
+tests/create_data/torch_reference.py from the JAX package).
 """
 
 import itertools
@@ -14,9 +18,10 @@ import torch
 from numpy.testing import assert_allclose
 
 from emg3d_tpu import meshes
-from emg3d_tpu.ops import operator, transfer
+from emg3d_tpu.ops import transfer
 from emg3d_tpu_torch.ops import operator as t_operator
 from emg3d_tpu_torch.ops import transfer as t_transfer
+from torch_reference import fields, reference
 
 RTOL = 1e-12
 
@@ -64,15 +69,18 @@ def _close(out, ref, rtol=RTOL):
 def test_amat_residual_norm():
     e, s, eta, zeta, h = _problem()
     model = [*eta, zeta, *h]
-    ref = operator.amat_x(*_j(e), *_j(model))
+    # operator.amat_x(e), residual(s, e) and its residual_norm of the JAX
+    # package on the same operands.
+    stored = reference('ops.amat_residual', _problem())
+    ref = fields(stored['amat'])
     out = t_operator.amat_x(*_t(e), *_t(model))
     _close(out, ref)
 
-    ref = operator.residual(*_j(s), *_j(e), *_j(model))
+    ref = fields(stored['residual'])
     out = t_operator.residual(*_t(s), *_t(e), *_t(model))
     _close(out, ref)
     assert_allclose(float(t_operator.residual_norm(*out)),
-                    float(operator.residual_norm(*ref)), rtol=RTOL)
+                    stored['residual_norm'], rtol=RTOL)
 
 
 def _level_pair(coarsen, seed=7, shape=(8, 6, 4)):

@@ -3,15 +3,18 @@
 Both packages run the same survey in complex128 on the CPU (JAX in x64,
 the port with ``device='cpu'``): 2 sources x 2 frequencies, two electric
 and one magnetic receiver, a VTI model with a random perturbation on a
-grid of 8^3 cells of 200 m (the JAX package compiles its solver for each
-shape, so one small shape serves the whole file), plain multigrid F-cycles (the default solver is held in
-tests/test_torch_sim_grad.py).  The JAX simulation is built once for the
-module.  Tolerances: synthetic data, misfit and gradient rtol 1e-8 (atol
-1e-8 of the largest entry), ``jvec`` and ``jtvec`` rtol 1e-7, the same
-``it_mg`` per task.  Every gridding mode gives the same grids (``h`` and
-``origin`` identical); ``file_dir`` gives the same data as in memory;
-dicts and files carry the simulation, its device and its dtype
-(``parallel='batch'`` is held in tests/test_torch_sim_batch.py).
+grid of 8^3 cells of 200 m, plain multigrid F-cycles (the default solver
+is held in tests/test_torch_sim_grad.py).  The JAX simulation is rebuilt
+(its ``from_dict``) from what it stored, ``to_dict('all')`` after its
+gradient, with its ``jvec`` and ``jtvec``: read from
+tests/data/torch_reference.npz, which tests/create_data/torch_reference.py
+writes from the JAX package.  Tolerances: synthetic data, misfit and
+gradient rtol 1e-8 (atol 1e-8 of the largest entry), ``jvec`` and
+``jtvec`` rtol 1e-7, the same ``it_mg`` per task.  Every gridding mode
+gives the same grids (``h`` and ``origin`` identical); ``file_dir``
+gives the same data as in memory; dicts and files carry the simulation,
+its device and its dtype (``parallel='batch'`` is held in
+tests/test_torch_sim_batch.py).
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ from numpy.testing import assert_allclose, assert_array_equal
 import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu_torch.convert import from_emg3d_tpu
+from torch_reference import reference
 
 N = 8       # cells a side of the solved grids
 SRCFREQ = [(s, f) for s in ('TxED-1', 'TxED-2') for f in ('f-1', 'f-2')]
@@ -83,18 +87,37 @@ def close(a, b, rtol=1e-8):
     assert_allclose(a, b, rtol=rtol, atol=rtol * np.abs(b).max())
 
 
+def jvec_vector():
+    """The model vector of test_jvec."""
+    return np.random.default_rng(42).normal(size=(2, N, N, N))
+
+
+def jtvec_weights(sim):
+    """The data vector of test_jtvec, made with the weights of ``sim``."""
+    rng = np.random.default_rng(43)
+    return rng.normal(size=sim.survey.shape) * np.asarray(sim.data.weights)
+
+
+def pair_sim(mod):
+    """The simulation of ``pair`` by package ``mod``, its observed data
+    computed by the same package, its misfit and gradient computed."""
+    model, sim_inp = make_inputs(mod)
+    sim_inp['survey'].data['observed'] = observed_data(mod)
+    sim = mod.Simulation(model=model, name='pair', **sim_inp)
+    _ = sim.gradient
+    return sim
+
+
 @pytest.fixture(scope='module')
 def pair():
     """(JAX simulation, the port's) on the same survey with observed data,
-    misfit and gradient computed."""
-    sims = []
-    for mod in (e3, t3):
-        model, sim_inp = make_inputs(mod)
-        sim_inp['survey'].data['observed'] = observed_data(mod)
-        sim = mod.Simulation(model=model, name='pair', **sim_inp)
-        _ = sim.gradient
-        sims.append(sim)
-    return sims
+    misfit and gradient computed.  The JAX simulation is rebuilt from the
+    file; its ``stored`` holds its ``jvec`` of ``jvec_vector()`` and its
+    ``jtvec`` of ``jtvec_weights`` of the port's simulation."""
+    ref = reference('sim.pair', *make_inputs(t3), jvec_vector())
+    jsim = e3.Simulation.from_dict(ref['simulation'])
+    jsim.stored = ref
+    return jsim, pair_sim(t3)
 
 
 def test_observed(pair):
@@ -144,18 +167,15 @@ def test_task_info_and_fields(pair, src, freq):
 
 def test_jvec(pair):
     ref, out = pair
-    v = np.random.default_rng(42).normal(size=(2, N, N, N))
-    a, b = out.jvec(v), ref.jvec(v)
+    a, b = out.jvec(jvec_vector()), ref.stored['jvec']
     assert np.all(np.isfinite(a)) and np.abs(a).max() > 0
     close(a, b, rtol=1e-7)
 
 
 def test_jtvec(pair):
     # On copies: jtvec replaces the residual and the gradient.
-    ref, out = (sim.copy() for sim in pair)
-    rng = np.random.default_rng(43)
-    w = rng.normal(size=out.survey.shape) * np.asarray(out.data.weights)
-    a, b = out.jtvec(w), ref.jtvec(w)
+    out = pair[1].copy()
+    a, b = out.jtvec(jtvec_weights(out)), pair[0].stored['jtvec']
     assert a.shape == (2, N, N, N)
     close(a, b, rtol=1e-7)
 
@@ -422,27 +442,32 @@ def test_gridding_input_and_dict():
     assert back.get_grid('TxED-2', 'f-1') == table['TxED-2']['f-1']
 
 
+def input_gridding_inputs(mod):
+    """(model, simulation inputs) of test_input_gridding_solves_like_jax
+    by package ``mod``."""
+    h = np.ones(8) * 200.0
+    model, sim_inp = make_inputs(mod, nx=16)
+    sim_inp['gridding'] = 'input'
+    sim_inp['survey'] = sim_inp['survey'].select(
+        sources='TxED-1', frequencies='f-1')
+    sim_inp['survey'].data['observed'] = sim_inp['survey'].data[
+        'observed'].copy(data=np.full((1, 3, 1), 1e-12 + 1e-12j))
+    sim_inp['gridding_opts'] = mod.TensorMesh([h, h, h], origin=(-800.,) * 3)
+    return model, sim_inp
+
+
 def test_input_gridding_solves_like_jax():
     """A task grid other than the model's: the model is interpolated to
-    it, the gradient comes back through the volume-average adjoint."""
-    h = np.ones(8) * 200.0
-    sims = []
-    for mod in (e3, t3):
-        model, sim_inp = make_inputs(mod, nx=16)
-        sim_inp['gridding'] = 'input'
-        sim_inp['survey'] = sim_inp['survey'].select(
-            sources='TxED-1', frequencies='f-1')
-        sim_inp['survey'].data['observed'] = sim_inp['survey'].data[
-            'observed'].copy(data=np.full((1, 3, 1), 1e-12 + 1e-12j))
-        grid_in = mod.TensorMesh([h, h, h], origin=(-800.,) * 3)
-        sim = mod.Simulation(model=model, gridding_opts=grid_in, **sim_inp)
-        _ = sim.gradient
-        sims.append(sim)
-    ref, out = sims
+    it, the gradient comes back through the volume-average adjoint.  The
+    JAX simulation's it_mg, data, misfit and gradient are read from the
+    file."""
+    model, sim_inp = input_gridding_inputs(t3)
+    ref = reference('sim.input', model, sim_inp)
+    out = t3.Simulation(model=model, **sim_inp)
+    _ = out.gradient
     assert out.get_efield('TxED-1', 'f-1').grid.shape_cells == (8, 8, 8)
-    assert (out.get_efield_info('TxED-1', 'f-1')['it_mg']
-            == ref.get_efield_info('TxED-1', 'f-1')['it_mg'])
-    close(out.data.synthetic, ref.data.synthetic)
-    assert_allclose(out.misfit, ref.misfit, rtol=1e-8)
+    assert out.get_efield_info('TxED-1', 'f-1')['it_mg'] == ref['it_mg']
+    close(out.data.synthetic, ref['synthetic'])
+    assert_allclose(out.misfit, ref['misfit'], rtol=1e-8)
     assert out.gradient.shape == (2, 16, 16, 16)
-    close(out.gradient, ref.gradient)
+    close(out.gradient, ref['gradient'])

@@ -19,7 +19,11 @@ batched engine, after tests/test_simulations.py:277-390:
   ``parallel='batch'`` across; a single task goes through the batch
   engine too.
 
-The JAX simulation is built once for the module.
+The JAX simulation is rebuilt (its ``from_dict``) from what it stored,
+``to_dict('all')`` after its gradient, with its ``jvec`` of ``V``: read
+from tests/data/torch_reference.npz, which
+tests/create_data/torch_reference.py writes from the JAX package (from
+the observed data the port computes here).
 """
 
 import numpy as np
@@ -32,6 +36,7 @@ import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch.parallel import batch as tbatch
+from torch_reference import reference
 
 N = 8
 SRCFREQ = [(s, f) for s in ('TxED-1', 'TxED-2') for f in ('f-1', 'f-2')]
@@ -48,10 +53,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def make_inputs(mod, parallel, gridding='same', seed=41):
+def make_inputs(mod, parallel, gridding='same', seed=41, observed=True):
     """A small survey and model made by package ``mod`` from a seed, with
-    observed data: the responses of the model with its resistivities
-    times 1.2, computed by the port's task engine."""
+    observed data (unless not ``observed``): the responses of the model
+    with its resistivities times 1.2, computed by the port's task
+    engine."""
     rng = np.random.default_rng(seed)
     h = np.ones(N) * 1600.0 / N
     grid = mod.TensorMesh([h, h, h], origin=(-800.,) * 3)
@@ -66,7 +72,8 @@ def make_inputs(mod, parallel, gridding='same', seed=41):
     receivers += [mod.RxMagneticPoint((300., 0., 100., 90., 0.))]
     survey = mod.Survey(sources, receivers, [1.0, 2.0],
                         relative_error=0.05, noise_floor=1e-17)
-    survey.data['observed'] = OBSERVED
+    if observed:
+        survey.data['observed'] = OBSERVED
     sim_inp = {
         'survey': survey, 'gridding': gridding, 'parallel': parallel,
         'receiver_interpolation': 'linear', 'tqdm_opts': False,
@@ -123,12 +130,22 @@ def run(mod, parallel, **kw):
     return sim
 
 
+def jax_inputs():
+    """What the JAX batch simulation of ``sims`` depends on, but for the
+    observed data the port computes (the file's answer was made from
+    them)."""
+    return (*make_inputs(t3, 'batch', observed=False), V)
+
+
 @pytest.fixture(scope='module')
 def sims():
     """{'jax': JAX batch, 'batch': the port's batch, 'task': the port's
-    task engine}, each with misfit, gradient and jvec computed."""
-    return {'jax': run(e3, 'batch'), 'batch': run(t3, 'batch'),
-            'task': run(t3, 'task')}
+    task engine}, each with misfit, gradient and jvec computed; the JAX
+    one rebuilt from the file."""
+    ref = reference('sim_batch.jax', *jax_inputs())
+    jsim = e3.Simulation.from_dict(ref['simulation'])
+    jsim.jvec_v = ref['jvec']
+    return {'jax': jsim, 'batch': run(t3, 'batch'), 'task': run(t3, 'task')}
 
 
 @pytest.mark.parametrize('ref,rtol', [('jax', 1e-8), ('task', 1e-5)])

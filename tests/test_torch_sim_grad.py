@@ -3,13 +3,14 @@ package, and the physics oracles on the port alone.
 
 - The default solver (MG-preconditioned BiCGSTAB, semicoarsening, line
   relaxation; no solver option but ``tol``) on an 8^3 VTI survey of 2
-  sources at one frequency (the JAX package compiles every smoother
-  variant of this path, which takes minutes, so it runs once and small;
-  2 x 2 tasks are held in tests/test_torch_sim.py), in complex128 on the
-  CPU in both packages:
+  sources at one frequency (2 x 2 tasks are held in
+  tests/test_torch_sim.py), in complex128 on the CPU in both packages:
   the same ``it_ssl`` and ``it_mg`` per task, synthetic data, misfit and
   gradient to rtol 1e-8 (atol 1e-8 of the largest entry), ``jvec`` to
-  rtol 1e-7.  The JAX simulation is built once.
+  rtol 1e-7.  The JAX simulation is rebuilt (its ``from_dict``) from
+  what it stored, ``to_dict('all')`` after its gradient, with its
+  ``jvec``: read from tests/data/torch_reference.npz, which
+  tests/create_data/torch_reference.py writes from the JAX package.
 - On the port alone (``device='cpu'``, plain F-cycles), after
   tests/test_simulations.py: the adjoint identity <w, Re(J v)> = <v, J^T w>
   to 1e-4 for isotropic, HTI, VTI and triaxial models under four property
@@ -27,7 +28,7 @@ from numpy.testing import assert_allclose
 import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu_torch import maps
-
+from torch_reference import reference
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -93,17 +94,36 @@ def with_observed(mod, scale, **kw):
 # The default solver, against the JAX package.
 # --------------------------------------------------------------------------
 
+def default_options():
+    """The survey of ``default_pair``: 2 sources, VTI, 8^3, the default
+    solver to 1e-6."""
+    return dict(nx=8, anisotropy='VTI', nsrc=2, nfreq=1,
+                solver_opts={'tol': 1e-6, 'verb': 0})
+
+
+def jvec_vector():
+    """The model vector of test_default_solver_jvec."""
+    return np.random.default_rng(44).normal(size=(2, 8, 8, 8))
+
+
+def default_inputs():
+    """What the JAX simulation of ``default_pair`` depends on (its
+    observed data are its own responses, the resistivities times 1.2)."""
+    return (*make_inputs(t3, **default_options()), 1.2, jvec_vector())
+
+
 @pytest.fixture(scope='module')
 def default_pair():
-    sims = []
-    for mod in (e3, t3):
-        model, sim_inp = with_observed(
-            mod, 1.2, nx=8, anisotropy='VTI', nsrc=2, nfreq=1,
-            solver_opts={'tol': 1e-6, 'verb': 0})
-        sim = mod.Simulation(model=model, **sim_inp)
-        _ = sim.gradient
-        sims.append(sim)
-    return sims
+    """(the JAX simulation, rebuilt from the file, its ``jvec`` of
+    ``jvec_vector()`` as ``jvec_v``; the port's), each with its observed
+    data, misfit and gradient."""
+    ref = reference('sim_grad.default', *default_inputs())
+    jsim = e3.Simulation.from_dict(ref['simulation'])
+    jsim.jvec_v = ref['jvec']
+    model, sim_inp = with_observed(t3, 1.2, **default_options())
+    sim = t3.Simulation(model=model, **sim_inp)
+    _ = sim.gradient
+    return jsim, sim
 
 
 def close(a, b, rtol=1e-8):
@@ -139,8 +159,7 @@ def test_default_solver_data_misfit_gradient(default_pair):
 
 def test_default_solver_jvec(default_pair):
     ref, out = default_pair
-    v = np.random.default_rng(44).normal(size=(2, 8, 8, 8))
-    close(out.jvec(v), ref.jvec(v), rtol=1e-7)
+    close(out.jvec(jvec_vector()), ref.jvec_v, rtol=1e-7)
 
 
 # --------------------------------------------------------------------------

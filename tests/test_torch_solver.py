@@ -1,7 +1,10 @@
 """PyTorch port, solves against ``emg3d_tpu.solver.solve`` and oracles.
 
 Both packages solve the same problem in complex128 on the CPU (JAX in x64
-mode, the port with ``device='cpu'``): a stretched, non-cubic,
+mode, the port with ``device='cpu'``; the JAX package's solves are read
+from tests/data/torch_reference.npz, written by
+tests/create_data/torch_reference.py from the JAX package): a stretched,
+non-cubic,
 anisotropic grid whose axes stop coarsening at different depths (16 x 8 x
 12 -> 8 x 4 x 6 -> 4 x 2 x 3 -> 2 x 2 x 3), so partial coarsening is
 exercised.  Same cycle count and exit message, rel_error to rtol 1e-8,
@@ -28,6 +31,7 @@ from emg3d_tpu_torch import northstar
 from emg3d_tpu_torch.convert import from_emg3d_tpu
 from emg3d_tpu_torch import models as t_models
 from emg3d_tpu_torch import solver as t_solver
+from torch_reference import reference
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -40,6 +44,10 @@ def _one_thread():
 
 @pytest.fixture(scope='module')
 def problem():
+    return make_problem()
+
+
+def make_problem():
     rng = np.random.default_rng(1)
     h = [rng.uniform(50, 150, n) for n in (16, 8, 12)]
     grid = meshes.TensorMesh(h, origin=(-800., -400., -600.))
@@ -51,14 +59,25 @@ def problem():
     return model, sfield
 
 
-def _both(model, sfield, efield=None, **kw):
-    """Solve with both packages; returns ((field, info), (field, info))."""
+def both_options(efield=None, **kw):
+    """The options of a solve of ``_both``, the JAX package's and the
+    port's."""
     kw = dict(plain=True, return_info=True, **kw)
     jkw, tkw = dict(kw), dict(kw, device='cpu')
     if efield is not None:
         jkw['efield'] = efield.copy()
         tkw['efield'] = from_emg3d_tpu(efield.copy())
-    ref = solver.solve(model, sfield, **jkw)
+    return jkw, tkw
+
+
+def _both(name, model, sfield, efield=None, **kw):
+    """Solve with the port; the JAX package's solve of the same is read
+    from tests/data/torch_reference.npz as case ``name``.  Returns
+    ((field, info), (field, info))."""
+    jkw, tkw = both_options(efield, **kw)
+    ref = reference(name, model, sfield, jkw)
+    ref = fields.Field(sfield.grid, data=ref['field'],
+                       frequency=sfield.frequency), ref
     out = t_solver.solve(from_emg3d_tpu(model),
                          from_emg3d_tpu(sfield), **tkw)
     return out, ref
@@ -76,27 +95,32 @@ def _same(out, ref):
 
 @pytest.mark.parametrize('cycle', ['F', 'V', 'W'])
 def test_plain_cycles(problem, cycle):
-    out, ref = _both(*problem, cycle=cycle, tol=1e-6)
+    out, ref = _both(f'solver.{cycle}', *problem, cycle=cycle, tol=1e-6)
     _same(out, ref)
     assert out[1]['exit'] == 0
     assert out[1]['it_mg'] > 2
 
 
-def test_warm_start_and_pec(problem):
-    model, sfield = problem
+def warm_start(sfield):
+    """A random start with nonzero boundary edges."""
     rng = np.random.default_rng(2)
     n = sfield.field.size
-    start = fields.Field(sfield.grid, data=1e-9 * (
+    return fields.Field(sfield.grid, data=1e-9 * (
         rng.normal(size=n) + 1j * rng.normal(size=n)), frequency=0.77)
+
+
+def test_warm_start_and_pec(problem):
+    model, sfield = problem
+    start = warm_start(sfield)
     # Nonzero boundary edges: both solvers must zero them (PEC).
-    out, ref = _both(model, sfield, efield=start, cycle='F', tol=1e-6,
-                     always_return=True)
+    out, ref = _both('solver.warm', model, sfield, efield=start, cycle='F',
+                     tol=1e-6, always_return=True)
     _same(out, ref)
     assert not out[0].fx[:, 0, :].any()
 
     # A field that is already good enough: NOTHING DONE, zero cycles.
-    out2, ref2 = _both(model, sfield, efield=ref[0], cycle='F', tol=1e-3,
-                       always_return=True)
+    out2, ref2 = _both('solver.warm.done', model, sfield, efield=ref[0],
+                       cycle='F', tol=1e-3, always_return=True)
     _same(out2, ref2)
     assert out2[1]['it_mg'] == 0
     assert out2[1]['exit_message'] == 'CONVERGED'
@@ -105,7 +129,7 @@ def test_warm_start_and_pec(problem):
 def test_zero_source(problem):
     model, sfield = problem
     zero = fields.Field(sfield.grid, frequency=0.77)
-    out, ref = _both(model, zero)
+    out, ref = _both('solver.zero', model, zero)
     assert out[1]['it_mg'] == ref[1]['it_mg'] == 0
     assert out[1]['exit'] == ref[1]['exit'] == 0
     assert np.isnan(out[1]['rel_error'])

@@ -8,9 +8,11 @@ with a fourth frequency (4 tasks, padded to 6 lanes over 3 entries):
 - ``solve_batch`` over the mesh, plain multigrid and
   ``sslsolver='bicgstab'``: every lane equals the port's unsharded batch
   to 1e-12 with the same iterations, and the JAX package's
-  ``solve_batch(mesh=None)`` to 1e-10; with active shrink
-  (``EMG3D_TPU_BATCH_SHRINK=1``) too, where the recompacted lanes move
-  between entries;
+  ``solve_batch(mesh=None)`` to 1e-10 (its answer read from
+  tests/data/torch_reference.npz, written by
+  tests/create_data/torch_reference.py from the JAX package); with
+  active shrink (``EMG3D_TPU_BATCH_SHRINK=1``) too, where the recompacted
+  lanes move between entries;
 - ``_shrink_size`` against the JAX rule for a table of
   ``(ntask, n_active, nd)``;
 - ``Simulation(parallel='batch')`` with its device helper patched to two
@@ -25,11 +27,11 @@ import pytest
 import threadpoolctl
 import torch
 
-import emg3d_tpu as e3
 import emg3d_tpu_torch as t3
 from emg3d_tpu.parallel import batch as jbatch
 from emg3d_tpu_torch.parallel import batch as tbatch
 from emg3d_tpu_torch.parallel import dryrun_multichip
+from torch_reference import Field, reference
 
 N = 8
 FREQS = [0.5, 1.0, 2.0, 4.0]
@@ -66,6 +68,18 @@ def problem(mod, zero=()):
     for i in zero:
         sfields[i].field *= 0.0
     return model, sfields
+
+
+def batch_inputs(case):
+    """What the JAX package's batched solve of ``case`` depends on."""
+    return problem(t3)[0], SOURCE, FREQS, CASES[case]
+
+
+def jax_solve(case):
+    """The JAX package's ``solve_batch_fields(mesh=None)`` of ``case``,
+    read from tests/data/torch_reference.npz: (lanes, info)."""
+    ref = reference(f'task_mesh.{case}', *batch_inputs(case))
+    return [Field(f) for f in ref['fields']], ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,8 +120,7 @@ def test_task_mesh_equals_unsharded_and_jax(case):
     assert out[1]['exit_messages'] == ['CONVERGED'] * len(FREQS)
     assert len(out[1]['abs_error']) == len(FREQS)
     assert_lanes(out, port_solve(case, 0), 1e-12)
-    ref = jbatch.solve_batch_fields(*problem(e3), mesh=None, **CASES[case])
-    assert_lanes(out, ref, 1e-10)
+    assert_lanes(out, jax_solve(case), 1e-10)
 
 
 @pytest.mark.parametrize('entries', [2, 3])

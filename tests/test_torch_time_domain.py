@@ -5,8 +5,10 @@ Laplace-domain solve with the default solver.
   ``fmax`` 1.2 Hz; a 400 m offset, inside the 1.6 km grid) on the CPU,
   against the JAX recipe's calls inline (tools/bench_time.py:63-79:
   ``emg3d_tpu.Fourier``, ``solve_source`` with plain F-cycles,
-  ``get_receiver``, ``freq2time``): the same ``it_mg`` per frequency,
-  responses and transient to 1e-10.
+  ``get_receiver``, ``freq2time``; its answers read from
+  tests/data/torch_reference.npz, written by
+  tests/create_data/torch_reference.py from the JAX package): the same
+  ``it_mg`` per frequency, responses and transient to 1e-10.
 - The Laplace-domain problem (``frequency`` < 0, real fields) with the
   solver's default options (MG-preconditioned BiCGSTAB, semicoarsening
   and line relaxation) at 8^3 on the CPU against the dense direct solve
@@ -44,6 +46,7 @@ from emg3d_tpu_torch import models as t_models
 from emg3d_tpu_torch import northstar
 from emg3d_tpu_torch import solver as t_solver
 from emg3d_tpu_torch import transforms as t_transforms
+from torch_reference import reference
 
 BAND = dict(fmin=0.85, fmax=1.2, offset=400.0)
 
@@ -92,7 +95,10 @@ def test_time_domain_equals_jax_recipe(one_thread_filters):
     times = np.logspace(-2, 1, 13)
     transient, per_freq = northstar.time_domain(16, times=times,
                                                 device='cpu', **BAND)
-    ref_t, ref_resp, ref_its, freqs = jax_time_domain(16, times, **BAND)
+    # jax_time_domain(16, times, **BAND), its filter designed on one thread.
+    ref = reference('time_domain.16', 16, times, BAND)
+    ref_t, ref_resp, freqs = ref['transient'], ref['responses'], ref['freqs']
+    ref_its = ref['it_mg'].tolist()
 
     assert len(per_freq) == freqs.size == 4
     assert_allclose([p['frequency'] for p in per_freq], freqs, rtol=1e-15)
