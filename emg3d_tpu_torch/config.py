@@ -55,14 +55,29 @@ def dtype_name(dtype):
     return name
 
 
-def working_dtypes(device, is_complex, dtype=None):
+# The least ``models.VolumeModel.min_eta_ratio`` (|eta| of a cell over
+# its curl-curl scale zeta / min(h)^2) at which the card's default
+# multigrid runs in single precision.  Below it float32 rounds eta away
+# beside the curl terms and the cycle stalls or diverges.  Measured on an
+# H100 (the marine cell's 160 x 160 x 48 grid, 92-m cells, complex64):
+# 5 cycles with air of 1e4 Ohm m (ratio 6.7e-6), 23 with 1e5 (6.7e-7),
+# no convergence in 60 with 1e6 (6.7e-8), divergence with 1e8 (6.7e-10);
+# 5 cycles with 1e8 in complex128.
+SINGLE_MIN_ETA_RATIO = 1e-6
+
+
+def working_dtypes(device, is_complex, dtype=None, eta_ratio=np.inf):
     """(field dtype, real dtype) of the device tensors of a solve.
 
     ``dtype`` (a torch complex or real dtype or its name, or None)
-    overrides the device default; its precision sets both entries.
+    overrides the default: double precision off the card, and on the card
+    where the model's ``eta_ratio`` (``models.VolumeModel.min_eta_ratio``)
+    is below ``SINGLE_MIN_ETA_RATIO``, else single; its precision sets
+    both entries.
     """
     if dtype is None:
-        double = device.type != "cuda"
+        double = (device.type != "cuda"
+                  or eta_ratio < SINGLE_MIN_ETA_RATIO)
     else:
         double = dtype_name(dtype) in ("complex128", "float64")
     rdt = torch.float64 if double else torch.float32

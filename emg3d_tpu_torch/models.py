@@ -345,17 +345,29 @@ class VolumeModel:
             displacement = (0.0 if model.epsilon_r is None else
                             sfield.sval * sp.constants.epsilon_0
                             * model.epsilon_r)
+            sigma_min = []
 
             def eta_of(prop):
                 if prop is None:
                     return None
                 sigma = model.map.backward(prop)
+                sigma_min.append(np.min(sigma))
                 return -sfield.smu0 * vol * (sigma + displacement)
 
             self._eta_x = eta_of(model.property_x)
             self._eta_y = eta_of(model.property_y)
             self._eta_z = eta_of(model.property_z)
             self._zeta = vol if model.mu_r is None else vol / model.mu_r
+
+            # A lower bound of |eta| over the curl-curl scale
+            # zeta / min(h)^2 of every cell, from the least conductivity,
+            # permeability and cell width: where it is small the solver's
+            # multigrid runs in double precision on the card
+            # (config.working_dtypes).
+            mu_min = 1.0 if model.mu_r is None else np.min(model.mu_r)
+            hmin = min(np.min(w) for w in self.grid.h)
+            self.min_eta_ratio = float(abs(sfield.smu0) * min(sigma_min)
+                                       * mu_min * hmin ** 2)
 
     @property
     def eta_x(self):

@@ -71,7 +71,10 @@ class _BatchHierarchies(solver._Hierarchies):
     """
 
     def __init__(self, vmodels, var, scales=None, device=None):
-        super().__init__(vmodels[0], var, device)
+        ratio = min(getattr(vm, 'min_eta_ratio', np.inf) for vm in vmodels)
+        if scales is not None:
+            ratio *= min(abs(s) for s in scales)
+        super().__init__(vmodels[0], var, device, ratio)
         self.vmodels = vmodels
         self.scales = scales
 

@@ -13,7 +13,7 @@ task's solver options (``device``, ``dtype``), as for
 (h5-spill) computations behave identically.
 """
 
-from emg3d_tpu_torch import io, solver
+from emg3d_tpu_torch import io, solver, tracing
 
 __all__ = ['process_map', 'solve', 'layered']
 
@@ -85,9 +85,9 @@ def solve(inp):
     # own solver options say.
     opts = {**task['solver_opts'], 'return_info': True,
             'always_return': True}
-    efield, info = run(
-        model=task['model'].interpolate_to_grid(grid),
-        efield=task['efield'], **how, **opts)
+    with tracing.span('emg3d.sim.model'):
+        model = task['model'].interpolate_to_grid(grid)
+    efield, info = run(model=model, efield=task['efield'], **how, **opts)
 
     if path:
         out = _task_output_path(path)

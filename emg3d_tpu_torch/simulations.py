@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from emg3d_tpu_torch import (config, fields, io, maps, meshes, models,
-                             utils)
+                             tracing, utils)
 from emg3d_tpu_torch.parallel import batch as _batch
 from emg3d_tpu_torch.parallel import tasks as _tasks
 
@@ -454,6 +454,26 @@ class Simulation:
         """Solver info of the (source, frequency) computation."""
         return self._dict_get('efield_info', source, frequency)
 
+    def get_bfield(self, source, frequency):
+        """Back-propagated (adjoint) field for (source, frequency), the
+        one the gradient is assembled from; back-propagates the data
+        residual of every task if any is missing."""
+        self._ensure_bfields()
+        return self._dict_get('bfield', source, frequency)
+
+    def get_bfield_info(self, source, frequency):
+        """Solver info of the (source, frequency) back-propagation."""
+        self._ensure_bfields()
+        return self._dict_get('bfield_info', source, frequency)
+
+    def _ensure_bfields(self):
+        """Back-propagate unless every task's adjoint field is there."""
+        computed = getattr(self, '_dict_bfield', None)
+        if computed is None or any(computed[src][freq] is None
+                                   for src, freq in self._srcfreq):
+            _ = self.misfit  # The residual and weights of the sources.
+            self._bcompute()
+
     def _dict_get(self, which, source, frequency, solve_if_missing=False):
         """Cached per-task value; optionally triggers the missing solve.
 
@@ -490,6 +510,10 @@ class Simulation:
         magnetic ones its curl (H via Faraday) — hence the deferred
         field factory per group.
         """
+        with tracing.span('emg3d.sim.responses'):
+            return self._responses(source, frequency, efield)
+
+    def _responses(self, source, frequency, efield):
         if efield is None:
             efield = self._dict_get('efield', source, frequency)
 
@@ -521,12 +545,13 @@ class Simulation:
         synthetic responses as observed and adds noise (if configured).
         """
         task = (kwargs.pop('source', None), kwargs.pop('frequency', None))
-        if self.layered:
-            if any(task):
-                raise NotImplementedError("No fields if `layered` is used.")
-            self._compute_1d()
-        else:
-            self._compute([task])
+        if self.layered and any(task):
+            raise NotImplementedError("No fields if `layered` is used.")
+        with tracing.span('emg3d.sim.compute'):
+            if self.layered:
+                self._compute_1d()
+            else:
+                self._compute([task])
 
         if observed:
             self.data['observed'] = self.data['synthetic'].copy()
@@ -561,6 +586,7 @@ class Simulation:
         shapes = [self.get_grid(*sf).shape_cells for sf in srcfreq]
         order = sorted(range(len(shapes)),
                        key=lambda i: shapes.index(shapes[i]))
+        tracing.count('sim_tasks', len(srcfreq))
         out = _tasks.process_map(
             _tasks.solve, [pack(srcfreq[i]) for i in order],
             max_workers=self.max_workers,
@@ -677,6 +703,7 @@ class Simulation:
             guesses = [self._dict_get('efield', src, freq)
                        for src, freq in pairs]
 
+            tracing.count('sim_tasks', len(pairs))
             efields, info = _batch.solve_batch(
                 gmodel, sources, freqs, efields=guesses, **sopts)
             self._store_batch_result('efield', pairs, efields, info)
@@ -744,12 +771,13 @@ class Simulation:
             if not self._computed:
                 self.compute()
 
-            self.data['residual'] = (
-                self.data.synthetic - self.data.observed)
-            r = np.asarray(self.data.residual)
-            w = np.asarray(self.data.weights)
-            self._misfit = 0.5 * float(
-                np.nansum(w * (r.real**2 + r.imag**2)))
+            with tracing.span('emg3d.sim.misfit'):
+                self.data['residual'] = (
+                    self.data.synthetic - self.data.observed)
+                r = np.asarray(self.data.residual)
+                w = np.asarray(self.data.weights)
+                self._misfit = 0.5 * float(
+                    np.nansum(w * (r.real**2 + r.imag**2)))
 
         return self._misfit
 
@@ -775,61 +803,66 @@ class Simulation:
         triaxial.
         """
         if self._gradient is None:
-            _ = self.misfit  # Ensures fields are computed.
-
-            if self.layered:
-                gradient = self._compute_1d(gradient=True)
-            else:
-                if self.receiver_interpolation == 'cubic':
-                    warnings.warn(
-                        "emg3d: Receiver responses were obtained with "
-                        "cubic interpolation. This will not yield the "
-                        "exact gradient. Change "
-                        "`receiver_interpolation='linear'` in the call "
-                        "to Simulation().", UserWarning)
-
-                non_unity = {
-                    'el. permittivity': self.model.epsilon_r,
-                    'magn. permeability': self.model.mu_r,
-                }
-                for what, values in non_unity.items():
-                    if values is not None and not np.allclose(values, 1.0):
-                        raise NotImplementedError(
-                            f"Gradient not implemented for {what}.")
-
-                self._bcompute()
-
-                gradient = np.zeros((3, *self.model.shape), order='F')
-
-                for src, freq in self._srcfreq:
-                    efield = self._dict_get('efield', src, freq)
-                    bfield = self._dict_get('bfield', src, freq)
-
-                    # λ̄ S' E: multiply back- and forward fields.
-                    gfield = fields.Field(
-                        grid=efield.grid,
-                        data=np.real(
-                            bfield.field * efield.smu0 * efield.field))
-
-                    shape = gfield.grid.shape_cells
-                    grad = np.zeros((3, *shape), order='F')
-                    cell_volumes = gfield.grid.cell_volumes
-                    maps.interp_edges_to_vol_averages(
-                        ex=gfield.fx, ey=gfield.fy, ez=gfield.fz,
-                        volumes=cell_volumes.reshape(shape, order='F'),
-                        ox=grad[0, ...], oy=grad[1, ...],
-                        oz=grad[2, ...])
-
-                    if self.model.grid != gfield.grid:
-                        maps.interp_volume_average_adj(
-                            oval=gradient, ogrid=self.model.grid,
-                            nval=grad, ngrid=gfield.grid)
-                    else:
-                        gradient += grad
-
-            self._gradient = self._merge_gradient_axes(gradient)
-
+            with tracing.span('emg3d.sim.gradient'):
+                self._gradient = self._compute_gradient()
         return self._gradient
+
+    def _compute_gradient(self):
+        _ = self.misfit  # Ensures fields are computed.
+
+        if self.layered:
+            return self._merge_gradient_axes(
+                self._compute_1d(gradient=True))
+
+        if self.receiver_interpolation == 'cubic':
+            warnings.warn(
+                "emg3d: Receiver responses were obtained with "
+                "cubic interpolation. This will not yield the "
+                "exact gradient. Change "
+                "`receiver_interpolation='linear'` in the call "
+                "to Simulation().", UserWarning)
+
+        non_unity = {
+            'el. permittivity': self.model.epsilon_r,
+            'magn. permeability': self.model.mu_r,
+        }
+        for what, values in non_unity.items():
+            if values is not None and not np.allclose(values, 1.0):
+                raise NotImplementedError(
+                    f"Gradient not implemented for {what}.")
+
+        self._ensure_bfields()
+
+        with tracing.span('emg3d.sim.gradient.assemble'):
+            gradient = np.zeros((3, *self.model.shape), order='F')
+
+            for src, freq in self._srcfreq:
+                efield = self._dict_get('efield', src, freq)
+                bfield = self._dict_get('bfield', src, freq)
+
+                # λ̄ S' E: multiply back- and forward fields.
+                gfield = fields.Field(
+                    grid=efield.grid,
+                    data=np.real(
+                        bfield.field * efield.smu0 * efield.field))
+
+                shape = gfield.grid.shape_cells
+                grad = np.zeros((3, *shape), order='F')
+                cell_volumes = gfield.grid.cell_volumes
+                maps.interp_edges_to_vol_averages(
+                    ex=gfield.fx, ey=gfield.fy, ez=gfield.fz,
+                    volumes=cell_volumes.reshape(shape, order='F'),
+                    ox=grad[0, ...], oy=grad[1, ...],
+                    oz=grad[2, ...])
+
+                if self.model.grid != gfield.grid:
+                    maps.interp_volume_average_adj(
+                        oval=gradient, ogrid=self.model.grid,
+                        nval=grad, ngrid=gfield.grid)
+                else:
+                    gradient += grad
+
+            return self._merge_gradient_axes(gradient)
 
     def _merge_gradient_axes(self, gradient):
         """Per-direction edge gradient -> model-parameter gradient.
@@ -861,6 +894,11 @@ class Simulation:
         In ``parallel='batch'`` mode the adjoint sources stack like
         forward source fields: one batched solve per grid-sharing group.
         """
+        with tracing.span('emg3d.sim.bcompute'):
+            self._back_propagate()
+        self.print_solver_info('bfield', verb=self.verb)
+
+    def _back_propagate(self):
         for cache in ('_dict_bfield', '_dict_bfield_info'):
             self.__dict__.setdefault(cache, self._dict_initiate)
 
@@ -871,6 +909,7 @@ class Simulation:
                            for src, freq in pairs]
                 guesses = [self._dict_get('bfield', src, freq)
                            for src, freq in pairs]
+                tracing.count('sim_tasks', len(pairs))
                 bfields, info = _batch.solve_batch_fields(
                     gmodel, rfields, efields=guesses, **sopts)
                 self._store_batch_result('bfield', pairs, bfields, info)
@@ -889,8 +928,6 @@ class Simulation:
                 self._dict_bfield[src][freq] = bfield
                 self._dict_bfield_info[src][freq] = binfo
 
-        self.print_solver_info('bfield', verb=self.verb)
-
     def _get_rfield(self, source, frequency):
         """Adjoint (residual) source field (simulations.py:1235-1268)."""
         freq = self.survey.frequencies[frequency]
@@ -904,14 +941,17 @@ class Simulation:
         # Weighted residual, normalized by -smu0, conjugated.
         strength = np.conj(residual * weight / -rfield.smu0)
 
-        for i, rec in enumerate(self.survey.receivers.values()):
-            if np.isnan(residual[i]):
-                continue
-            coords = rec.coordinates_abs(self.survey.sources[source])
-            src = rec._adjoint_source(coords, strength=strength[i])
-            rfield.field = (
-                rfield.field
-                + src.get_field(grid=grid, frequency=freq).field)
+        receivers = [(i, rec) for i, rec in
+                     enumerate(self.survey.receivers.values())
+                     if not np.isnan(residual[i])]
+        with tracing.span('emg3d.sim.rfield', receivers=len(receivers)):
+            tracing.count('rfield_receivers', len(receivers))
+            for i, rec in receivers:
+                coords = rec.coordinates_abs(self.survey.sources[source])
+                src = rec._adjoint_source(coords, strength=strength[i])
+                rfield.field = (
+                    rfield.field
+                    + src.get_field(grid=grid, frequency=freq).field)
 
         return rfield
 
@@ -974,6 +1014,7 @@ class Simulation:
             sopts = self._batch_setup(self.tol_gradient)
             for pairs, gmodel in self._batch_groups(self._srcfreq):
                 gsrcs = [gfield_source(src, freq) for src, freq in pairs]
+                tracing.count('sim_tasks', len(pairs))
                 gfields, _ = _batch.solve_batch_fields(gmodel, gsrcs,
                                                        **sopts)
                 for (src, freq), gfield in zip(pairs, gfields):

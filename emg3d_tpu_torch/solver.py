@@ -71,7 +71,8 @@ def solve(model, sfield, sslsolver=True, semicoarsening=True,
       whole fields live.  The cycles run operation by operation.
 
     Returns the electric field (and an info dict if ``return_info``).
-    The call is the root span ``emg3d.solve`` (:mod:`tracing`).
+    The call is the span ``emg3d.solve`` (:mod:`tracing`), a solve root
+    unless another solve encloses it.
     """
     with tracing.span('emg3d.solve', shape=tuple(model.shape)):
         return _solve(model, sfield, sslsolver, semicoarsening,
@@ -466,12 +467,15 @@ class _Hierarchies:
     where ``var.placement`` says so.
     """
 
-    def __init__(self, vmodel, var, device=None):
+    def __init__(self, vmodel, var, device=None, eta_ratio=None):
         self.vmodel = vmodel
         self.var = var
         self.device = var.device if device is None else device
+        if eta_ratio is None:
+            eta_ratio = getattr(vmodel, 'min_eta_ratio', np.inf)
         self.dtypes = config.working_dtypes(
-            self.device, np.iscomplexobj(vmodel.eta_x), var.dtype)
+            self.device, np.iscomplexobj(vmodel.eta_x), var.dtype,
+            eta_ratio)
         self.placement = var.placement
         self.layout = (None if self.placement is None
                        else self.placement.layout(vmodel.grid.shape_cells))

@@ -1,4 +1,4 @@
-"""Spans and counters of the solve path.
+"""Spans and counters of the solve path and of the survey layer.
 
 A ``torch.profiler`` session shows each span as a ``user_annotation``
 event named ``emg3d.*``, on the clock of the kernels and copies it
@@ -10,11 +10,10 @@ to an in-memory log (:func:`spans`; the oldest of more than
 :func:`span` costs one C call and returns a shared object that does
 nothing, and nothing is logged.
 
-Spans (each ``emg3d.*``; a root is a span opened with none open on its
-thread):
+Spans of the solve path (each ``emg3d.*``):
 
-- ``solve`` (root, ``shape``): one ``solver.solve`` call;
-- ``batch.solve`` (root, ``lanes``): one
+- ``solve`` (``shape``): one ``solver.solve`` call;
+- ``batch.solve`` (``lanes``): one
   ``parallel.batch.solve_batch_fields`` call;
 - ``model.volume``: ``models.VolumeModel`` (eta and zeta on the host);
 - ``hierarchy.build`` (``sc_dir``): one hierarchy, built on the host and
@@ -27,16 +26,34 @@ thread):
   CUDA graph or operation by operation;
 - ``sync``: one host read of device values.
 
-A root also keeps, in ``attrs['counts']``, how much each of
-:func:`counts` grew while it was open.
+Spans of the survey layer (``Simulation`` and ``parallel.tasks``):
+
+- ``sim.compute``: the forward task loop (solves and responses);
+- ``sim.responses``: one task's responses at its receivers;
+- ``sim.misfit``: the data residual and the weighted misfit;
+- ``sim.gradient``: the ``gradient`` property, everything it computes;
+- ``sim.bcompute``: the back-propagation (adjoint sources and solves);
+- ``sim.rfield`` (``receivers``): one adjoint source field, the sum of
+  its receivers' source fields;
+- ``sim.gradient.assemble``: field products, their cell and volume
+  averages onto the model's grid and the chain rule of the mapping;
+- ``sim.model``: one task's model interpolated onto its grid.
+
+A root is a span opened with none open on its thread.  A solve root
+(:func:`roots`) is an ``emg3d.solve`` or ``emg3d.batch.solve`` span with
+no solve span open above it, whatever survey span encloses it.  Roots
+and solve roots keep, in ``attrs['counts']``, how much each of
+:func:`counts` grew while they were open.
 
 Counters (always on; :func:`count` adds to them): ``h2d_bytes``,
 ``h2d_copies`` (``solver._to_device``), ``d2h_bytes``, ``d2h_copies``
 (``solver._to_host``), ``host_syncs`` (``solver._scalar``),
 ``hierarchy_builds``, ``step_misses`` and ``step_evictions`` (the
-whole-cycle step cache), and the launches of the hand-written kernels
-that graphs replay.  :func:`counts` reads them with the counters that
-live in their modules (``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
+whole-cycle step cache), the launches of the hand-written kernels that
+graphs replay, ``sim_tasks`` (solves the survey layer dispatched) and
+``rfield_receivers`` (receiver source fields summed into adjoint
+sources).  :func:`counts` reads them with the counters that live in
+their modules (``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
 ``ops.gs_phase.LAUNCHES``, ``ops.line_phase.LAUNCHES``) under one set of
 names; ``kernel_launches`` is what ran on the card: launches through the
 wrappers, plus those that replays ran, less those a capture recorded.
@@ -59,7 +76,7 @@ SOLVES = ('emg3d.solve', 'emg3d.batch.solve')
 KERNELS = ('gs_phase', 'line_phase')
 COUNTERS = ('h2d_bytes', 'h2d_copies', 'd2h_bytes', 'd2h_copies',
             'host_syncs', 'hierarchy_builds', 'step_misses',
-            'step_evictions',
+            'step_evictions', 'sim_tasks', 'rfield_receivers',
             *(f'{kind}_launches.{k}' for kind in ('replayed', 'captured')
               for k in KERNELS))
 
@@ -83,7 +100,7 @@ def _stack():
 
 class Span:
     """One span: ``name``, ``id``, ``parent`` (id, None for a root),
-    ``root`` (the id of its root: one per solve), ``start_ns`` and
+    ``root`` (the id of its root), ``start_ns`` and
     ``end_ns`` (``time.perf_counter_ns()``) and ``attrs``."""
 
     __slots__ = ('name', 'id', 'parent', 'root', 'start_ns', 'end_ns',
@@ -110,7 +127,8 @@ class Span:
         self.id = next(_IDS)
         self.parent = None if parent is None else parent.id
         self.root = self.id if parent is None else parent.root
-        if parent is None:
+        if parent is None or (self.name in SOLVES and not any(
+                s.name in SOLVES for s in stack)):
             self._counts = counts()
         if _profiler_enabled():
             self._annotation = torch.profiler.record_function(self.name)
@@ -180,9 +198,10 @@ def spans():
 
 
 def roots():
-    """The solves' root spans in the log (``emg3d.solve`` and
-    ``emg3d.batch.solve``)."""
-    return [s for s in _LOG if s.parent is None and s.name in SOLVES]
+    """The solve roots in the log: every ``emg3d.solve`` and
+    ``emg3d.batch.solve`` span with no solve span above it, also where a
+    survey span encloses it."""
+    return [s for s in _LOG if s.name in SOLVES and 'counts' in s.attrs]
 
 
 def dropped():
