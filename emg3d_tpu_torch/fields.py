@@ -15,6 +15,7 @@ implemented natively (adjoint trilinear onto faces + transposed edge-curl)
 instead of via discretize (reference fields.py:748-789).
 """
 
+import itertools
 import warnings
 from copy import deepcopy
 
@@ -237,10 +238,15 @@ def get_source_field(grid, source, frequency, **kwargs):
         else:
             source = electrodes.TxMagneticDipole(source, **inp)
 
-    # Get the geometric vector field.
+    # An electric point source has at most 24 entries: write only those.
     if isinstance(source, electrodes.TxElectricPoint):
-        vfield = _point_vector(grid, source.coordinates)
-    elif isinstance(source, electrodes.TxMagneticPoint):
+        sfield = Field(grid, frequency=frequency,
+                       dtype=config.solve_dtype(frequency))
+        _add_point_source(sfield, source)
+        return sfield
+
+    # Get the geometric vector field.
+    if isinstance(source, electrodes.TxMagneticPoint):
         vfield = _point_vector_magnetic(grid, source.coordinates, frequency)
     else:
         vfield = _dipole_vector(grid, source.points)
@@ -338,10 +344,14 @@ def get_magnetic_field(model, efield, device=None):
     return hfield
 
 
-def _point_vector(grid, coordinates):
-    """Point source via the adjoint of trilinear interpolation.
+def _point_entries(grid, coordinates):
+    """Flat indices into a Field's [fx, fy, fz] and float64 values of a
+    unit electric point source: the adjoint of trilinear interpolation.
 
-    Reference: emg3d/fields.py:662-745.
+    Up to 8 weights a component, each times the component of the
+    source's direction.  Where the point lies in an axis's last cell the
+    two positions along that axis coincide; the later write wins, as in
+    the reference's assignments (emg3d/fields.py:662-745).
     """
     outside = (
         coordinates[0] < grid.nodes_x[0] or
@@ -353,56 +363,52 @@ def _point_vector(grid, coordinates):
     if outside:
         raise ValueError(f"Provided source outside grid: {coordinates}.")
 
-    def adjoint_interp(xx, yy, zz, coo, s):
-        """Scatter unit strength to the 8 surrounding positions of coo."""
-        nx, ny, nz = s.shape
-
-        def cell_index(cc, coo_c):
-            return max(0, int(np.searchsorted(np.r_[cc, np.inf], coo_c,
-                                              side="right")) - 1)
-
-        ix = cell_index(xx, coo[0])
-        iy = cell_index(yy, coo[1])
-        iz = cell_index(zz, coo[2])
-
-        def frac(ic, nc, csrc, cc):
-            if ic == nc - 1:
-                return 1.0, 1.0, ic
-            ic1 = ic + 1
-            rc = (csrc - cc[ic]) / (cc[ic1] - cc[ic])
-            return rc, 1.0 - rc, ic1
-
-        rx, ex, ix1 = frac(ix, nx, coo[0], xx)
-        ry, ey, iy1 = frac(iy, ny, coo[1], yy)
-        rz, ez, iz1 = frac(iz, nz, coo[2], zz)
-
-        s[ix, iy, iz] = ex * ey * ez
-        s[ix1, iy, iz] = rx * ey * ez
-        s[ix, iy1, iz] = ex * ry * ez
-        s[ix1, iy1, iz] = rx * ry * ez
-        s[ix, iy, iz1] = ex * ey * rz
-        s[ix1, iy, iz1] = rx * ey * rz
-        s[ix, iy1, iz1] = ex * ry * rz
-        s[ix1, iy1, iz1] = rx * ry * rz
-
-    vfield = Field(grid, dtype=float)
-    fx = np.zeros(grid.shape_edges_x)
-    fy = np.zeros(grid.shape_edges_y)
-    fz = np.zeros(grid.shape_edges_z)
-
-    adjoint_interp(grid.cell_centers_x, grid.nodes_y, grid.nodes_z,
-                   coordinates[:3], fx)
-    adjoint_interp(grid.nodes_x, grid.cell_centers_y, grid.nodes_z,
-                   coordinates[:3], fy)
-    adjoint_interp(grid.nodes_x, grid.nodes_y, grid.cell_centers_z,
-                   coordinates[:3], fz)
+    def positions(cc, coo_c):
+        """The two positions around coo_c along one axis, with weights;
+        one position twice in the axis's last cell."""
+        ic = max(0, int(np.searchsorted(np.r_[cc, np.inf], coo_c,
+                                        side="right")) - 1)
+        if ic == len(cc) - 1:
+            return (ic, 1.0), (ic, 1.0)
+        rc = (coo_c - cc[ic]) / (cc[ic + 1] - cc[ic])
+        return (ic, 1.0 - rc), (ic + 1, rc)
 
     srcdir = electrodes.rotation(*coordinates[3:])
-    vfield.fx = fx * srcdir[0]
-    vfield.fy = fy * srcdir[1]
-    vfield.fz = fz * srcdir[2]
+    entries = {}
+    offset = 0
+    for axes, scale in zip(
+            ((grid.cell_centers_x, grid.nodes_y, grid.nodes_z),
+             (grid.nodes_x, grid.cell_centers_y, grid.nodes_z),
+             (grid.nodes_x, grid.nodes_y, grid.cell_centers_z)), srcdir):
+        nx, ny, nz = (len(cc) for cc in axes)
+        px, py, pz = (positions(cc, c)
+                      for cc, c in zip(axes, coordinates[:3]))
+        # The reference's order of writes, x fastest; the index in
+        # Fortran order within the component.
+        for (k, wz), (j, wy), (i, wx) in itertools.product(pz, py, px):
+            entries[offset + i + nx * (j + ny * k)] = (
+                np.float64(wx * wy * wz) * scale)
+        offset += nx * ny * nz
 
-    return vfield
+    return (np.fromiter(entries.keys(), dtype=np.int64, count=len(entries)),
+            np.fromiter(entries.values(), dtype=np.float64,
+                        count=len(entries)))
+
+
+def _add_point_source(field, source):
+    """Add the source field of the electric point ``source`` into
+    ``field`` in place, at its entries only.
+
+    The entries are scaled as :func:`get_source_field` scales a field, in
+    the field's dtype: by the strength, then by -s*mu_0 (if the field has
+    a frequency).
+    """
+    index, values = _point_entries(field.grid, source.coordinates)
+    values = values.astype(field.field.dtype)
+    values[:] = values * source.strength
+    if field.smu0 is not None:
+        values[:] = values * (-field.smu0)
+    field.field[index] += values
 
 
 def _point_vector_magnetic(grid, coordinates, frequency):

@@ -27,8 +27,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from emg3d_tpu_torch import (config, fields, io, maps, meshes, models,
-                             tracing, utils)
+from emg3d_tpu_torch import (config, electrodes, fields, io, maps, meshes,
+                             models, tracing, utils)
 from emg3d_tpu_torch.parallel import batch as _batch
 from emg3d_tpu_torch.parallel import tasks as _tasks
 
@@ -946,12 +946,19 @@ class Simulation:
                      if not np.isnan(residual[i])]
         with tracing.span('emg3d.sim.rfield', receivers=len(receivers)):
             tracing.count('rfield_receivers', len(receivers))
+            points = 0
+            field = rfield.field
             for i, rec in receivers:
                 coords = rec.coordinates_abs(self.survey.sources[source])
                 src = rec._adjoint_source(coords, strength=strength[i])
-                rfield.field = (
-                    rfield.field
-                    + src.get_field(grid=grid, frequency=freq).field)
+                # An electric point adds its few entries; any other
+                # source its whole field.
+                if isinstance(src, electrodes.TxElectricPoint):
+                    fields._add_point_source(rfield, src)
+                    points += 1
+                else:
+                    field += src.get_field(grid=grid, frequency=freq).field
+            tracing.count('rfield_point_receivers', points)
 
         return rfield
 

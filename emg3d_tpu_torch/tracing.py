@@ -50,10 +50,12 @@ Counters (always on; :func:`count` adds to them): ``h2d_bytes``,
 (``solver._to_host``), ``host_syncs`` (``solver._scalar``),
 ``hierarchy_builds``, ``step_misses`` and ``step_evictions`` (the
 whole-cycle step cache), the launches of the hand-written kernels that
-graphs replay, ``sim_tasks`` (solves the survey layer dispatched) and
+graphs replay, ``sim_tasks`` (solves the survey layer dispatched),
 ``rfield_receivers`` (receiver source fields summed into adjoint
-sources).  :func:`counts` reads them with the counters that live in
-their modules (``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
+sources) and ``rfield_point_receivers`` (those of them that were
+electric points, added at their few entries alone).  :func:`counts`
+reads them with the counters that live in their modules
+(``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
 ``ops.gs_phase.LAUNCHES``, ``ops.line_phase.LAUNCHES``) under one set of
 names; ``kernel_launches`` is what ran on the card: launches through the
 wrappers, plus those that replays ran, less those a capture recorded.
@@ -77,6 +79,7 @@ KERNELS = ('gs_phase', 'line_phase')
 COUNTERS = ('h2d_bytes', 'h2d_copies', 'd2h_bytes', 'd2h_copies',
             'host_syncs', 'hierarchy_builds', 'step_misses',
             'step_evictions', 'sim_tasks', 'rfield_receivers',
+            'rfield_point_receivers',
             *(f'{kind}_launches.{k}' for kind in ('replayed', 'captured')
               for k in KERNELS))
 
