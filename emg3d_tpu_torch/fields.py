@@ -6,8 +6,8 @@ of the reference's emg3d/fields.py.
 
 The ``Field`` container keeps the reference's layout (one 1-D array over all
 edges with Fortran-ordered 3-D views, emg3d/fields.py:40-383) for I/O and
-API parity; the solver converts the three components to device arrays once
-per solve.  Source-field construction and receiver sampling are host-side
+API parity; the solver copies the three components to the device once per
+solve (``emg3d_tpu_torch.copies``).  Source-field construction and receiver sampling are host-side
 setup work (numpy).
 
 Notable deviation: the magnetic point source (_point_vector_magnetic) is
@@ -317,29 +317,22 @@ def get_magnetic_field(model, efield, device=None):
     (None) is the CUDA card; without a card it raises ``RuntimeError``.
     Pass ``device='cpu'`` to run on the CPU.  Returns a host ``Field``.
     """
-    import torch
-
+    from emg3d_tpu_torch import copies
     from emg3d_tpu_torch.ops import operator
 
     device = config.resolve_device(device)
-
-    def dev(a):
-        # Field components are Fortran-ordered views.
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     hfield = Field(efield.grid, frequency=efield._frequency, electric=False)
 
     vmodel = models.VolumeModel(model, efield)
     zeta = vmodel.zeta / efield.smu0
 
-    mx, my, mz = operator.edge_curl_factor(
-        dev(efield.fx), dev(efield.fy), dev(efield.fz),
-        *(dev(np.asarray(h, dtype=np.float64)) for h in efield.grid.h),
-        dev(zeta))
-
-    hfield.fx = mx.cpu().numpy()
-    hfield.fy = my.cpu().numpy()
-    hfield.fz = mz.cpu().numpy()
+    curl = operator.edge_curl_factor(
+        *copies.field_to_device(efield, device),
+        *(copies.to_device(np.asarray(h, dtype=np.float64), device)
+          for h in efield.grid.h),
+        copies.to_device(zeta, device))
+    copies.field_to_host(curl, hfield)
 
     return hfield
 

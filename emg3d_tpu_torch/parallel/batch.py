@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from emg3d_tpu_torch import fields, models, solver, tracing
+from emg3d_tpu_torch import copies, fields, models, solver, tracing
 from emg3d_tpu_torch.ops import operator
 from emg3d_tpu_torch.parallel import domain
 
@@ -105,10 +105,10 @@ def _build_hierarchy_batched(vmodels, sc_dir, lr_dir, clevel_max, device,
         sc = np.asarray(scales)
         with tracing.span('emg3d.hierarchy.to_device'):
             for lvl in levels:
-                lvl.scale = solver._to_device(sc, device, dtypes[0])
+                lvl.scale = copies.to_device(sc, device, dtypes[0])
                 if lvl.ops64 is not None:
-                    lvl.scale64 = solver._to_device(sc, device,
-                                                    lvl.ops64[0].dtype)
+                    lvl.scale64 = copies.to_device(sc, device,
+                                                   lvl.ops64[0].dtype)
         return meta, levels
 
     metas, per_task = zip(*(
@@ -128,8 +128,6 @@ def _build_hierarchy_batched(vmodels, sc_dir, lr_dir, clevel_max, device,
             stacked(k, "ops"), lvl.rw, lvl.pm,
             None if lvl.ops64 is None else stacked(k, "ops64")))
     return metas[0], levels
-
-
 
 
 # --------------------------------------------------------------------------
@@ -165,14 +163,26 @@ class _Lanes:
 
     def split(self, a, dtype=None):
         """A host array over the lanes -> per-chunk device tensors."""
-        return [solver._to_device(a[lo:hi], dev, dtype)
+        return [copies.to_device(a[lo:hi], dev, dtype)
                 for (lo, hi), dev in zip(self.bounds, self.devices)]
 
     def host(self, chunks):
         """Per-chunk device tensors over lanes -> one host array (one
         sync)."""
         dev = self.devices[0]
-        return solver._scalar(torch.cat([c.to(dev) for c in chunks]))
+        return copies.scalar(torch.cat([c.to(dev) for c in chunks]))
+
+    def fields(self, per_lane, dtype):
+        """Host Fields, one per lane -> a batched field of ``dtype``."""
+        return [copies.field_to_device(per_lane[lo:hi], dev, dtype)
+                for (lo, hi), dev in zip(self.bounds, self.devices)]
+
+    def export(self, fs, out, lo=None):
+        """Write a batched field (the split ``fs + lo`` with ``lo``) into
+        ``out[task]`` of each lane's task (None: a padding task)."""
+        for c, (a, b) in enumerate(self.bounds):
+            copies.field_to_host(fs[c], [out[t] for t in self.tasks[a:b]],
+                                 None if lo is None else lo[c])
 
     def lane(self, fs, lane):
         """Lane ``lane`` of a batched field: a tuple of tensors."""
@@ -196,20 +206,6 @@ class _Lanes:
             out.append(tuple(torch.stack([ln[j].to(dev) for ln in lanes])
                              for j in range(len(fs[0]))))
         return [x[0] for x in out] if single else out
-
-
-def _to_lanes(lanes, per_task):
-    """Per-task tuples of host tensors -> a batched field of ``lanes``."""
-    return [tuple(torch.stack([solver._to_device(per_task[t][j], dev)
-                               for t in range(lo, hi)]) for j in range(3))
-            for (lo, hi), dev in zip(lanes.bounds, lanes.devices)]
-
-
-def _from_lanes(fs):
-    """A batched field -> a tuple of host arrays over all lanes."""
-    with tracing.span('emg3d.fields.to_host'):
-        return tuple(np.concatenate([solver._to_host(c[j]) for c in fs])
-                     for j in range(3))
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +245,7 @@ def _keep_lanes(active, new_n):
 
 def _take_level(lvl, keep):
     """The level for the lanes ``keep``: its scales, or its stacked eta."""
-    idx = solver._to_device(np.asarray(keep), lvl.ops[0].device)
+    idx = copies.to_device(np.asarray(keep), lvl.ops[0].device)
 
     def take(t):
         return None if t is None else t.index_select(0, idx)
@@ -405,41 +401,24 @@ def _bprecond(s, var, lanes):
             for eh, el in zip(e_hi, e_lo)]
 
 
-def _restore_lanes(x, lanes, stash, ntask):
-    """The full batch as host arrays from the batched field ``x`` of
-    ``lanes`` and the ``stash`` ({task: tuple of host arrays}) of the
-    lanes a shrink dropped."""
-    parts = _from_lanes(x)
-    if lanes.tasks.size == ntask and not stash:
-        return parts
-    out = dict(stash)
-    for lane, task in enumerate(lanes.tasks):
-        out[int(task)] = tuple(c[lane] for c in parts)
-    return tuple(np.stack([out[k][j] for k in range(ntask)])
-                 for j in range(3))
-
-
-def _stash(stash, x, lanes, keep, hdt=None, lo=None):
-    """Stash the host fields of the lanes a shrink drops (``x`` and, for
-    a split iterate, ``lo``, combined in ``hdt``)."""
+def _stash(out, x, lanes, keep, lo=None):
+    """Write the fields of the lanes a shrink drops (``x``, the split
+    ``x + lo`` with ``lo``) into their tasks' ``out`` Fields."""
     for lane in np.setdiff1d(np.arange(lanes.tasks.size), keep):
-        field = lanes.lane(x, lane)
-        if lo is not None:
-            field = tuple(h.to(hdt) + low.to(hdt) for h, low in
-                          zip(field, lanes.lane(lo, lane)))
-        with tracing.span('emg3d.fields.to_host'):
-            stash[int(lanes.tasks[lane])] = tuple(solver._to_host(c)
-                                                  for c in field)
+        task = out[lanes.tasks[lane]]
+        if task is not None:
+            copies.field_to_host(lanes.lane(x, lane), task,
+                                 None if lo is None else lanes.lane(lo, lane))
 
 
-def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
+def _bicgstab_batch(s, var, lanes, out, verb=0, x0=None):
     """Right-preconditioned BiCGSTAB over the task batch.
 
     Batched counterpart of ``solver._bicgstab`` (reference role:
     emg3d/solver.py:759-765); ``s`` (and ``x0``, which warm-starts the
     iteration: the initial residual is then s - A x0) are batched fields
-    of ``lanes``.  Returns (x as host arrays over all tasks, rnorm, it,
-    converged_mask).
+    of ``lanes``.  Writes x into ``out`` (a Field per task, None for a
+    padding task); returns (rnorm, it, converged_mask).
     """
     arrs0 = [levels[0] for _, levels in lanes.get(var.sc_dir, var.lr_dir)]
     nchunk = len(lanes.devices)
@@ -464,13 +443,13 @@ def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
     # Zero-source (or already-converged warm-started) tasks: born done.
     active = (bnrm > 0) & (rnorm >= atol)
     if not active.any():
-        return _from_lanes(x), rnorm, 0, rnorm < atol
+        lanes.export(x, out)
+        return rnorm, 0, rnorm < atol
 
     # Lane bookkeeping for active shrink: ``lanes.tasks[lane]`` is the
     # original task held by lane ``lane``; dropped (converged) tasks'
-    # solutions are stashed at shrink time.
+    # solutions are written out at shrink time.
     ntask = active.size
-    stash = {}
     shrink = _shrink_on()
 
     it = 0
@@ -503,7 +482,7 @@ def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
             new_n = _shrink_size(cur.size, int(active[cur].sum()), nchunk)
             if new_n < cur.size:
                 keep = _keep_lanes(active[cur], new_n)
-                _stash(stash, x, lanes, keep)
+                _stash(out, x, lanes, keep)
                 new = lanes.select(keep)
                 x, r, rhat, v, p = (lanes.take(f, keep, new)
                                     for f in (x, r, rhat, v, p))
@@ -516,29 +495,29 @@ def _bicgstab_batch(s, var, lanes, verb=0, x0=None):
                     print(f"   ssl it {it:3}: batch shrunk to "
                           f"{lanes.tasks.size}/{ntask} lanes")
 
-    return _restore_lanes(x, lanes, stash, ntask), rnorm, it, rnorm < atol
+    lanes.export(x, out)
+    return rnorm, it, rnorm < atol
 
 
-def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
+def _multigrid_batch(s, x0, var, lanes, l2_refe, out, verb=0):
     """Stand-alone multigrid cycles over the task batch.
 
     Batched counterpart of ``solver.multigrid``: the split iterate
     ``e_hi + e_lo`` in working precision, the per-task residual in
     double precision; a task is finished once converged or diverged, and
     the batch cycles until every task is.  ``s`` and ``x0`` are batched
-    fields of ``lanes``.  Returns (x as host arrays in double precision
-    over all tasks, per-task norms, cycles, exit messages).
+    fields of ``lanes``.  Writes x into ``out`` (as
+    :func:`_bicgstab_batch`); returns (per-task norms, cycles, exit
+    messages).
     """
     e_hi = (x0 if x0 is not None
             else [tuple(torch.zeros_like(c) for c in sc) for sc in s])
     e_lo = [tuple(torch.zeros_like(c) for c in eh) for eh in e_hi]
-    hdt = lanes.get(var.sc_dir, var.lr_dir)[0][1][0].ops64[0].dtype
     ntask = lanes.tasks.size
 
     # Active-shrink bookkeeping (see _shrink_size): ``lanes.tasks[lane]``
     # is the original task on lane ``lane``; finished tasks recompacted
-    # away are stashed with their combined field and exit message.
-    stash = {}
+    # away are written out with their exit message.
     l2_full = np.zeros(ntask)
     exit_full = ["MAX. ITERATION REACHED, NOT CONVERGED"] * ntask
     shrink = _shrink_on()
@@ -559,7 +538,7 @@ def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
         diverged = ~np.isfinite(l2) | (l2 > 10 * l2_refe[cur])
         if verb > 3 and it > 0:
             print(f"   cycle {it:3}: max rel error {rel.max():.3e} "
-                  f"({done.sum() + len(stash)}/{ntask} converged)")
+                  f"({done.sum() + ntask - cur.size}/{ntask} converged)")
         finished = done | diverged
         if np.all(finished) or it >= var.maxit:
             for lane, oi in enumerate(cur):
@@ -574,7 +553,7 @@ def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
                                  len(lanes.devices))
             if new_n < cur.size:
                 keep = _keep_lanes(~finished, new_n)
-                _stash(stash, e_hi, lanes, keep, hdt, e_lo)
+                _stash(out, e_hi, lanes, keep, e_lo)
                 for lane in np.setdiff1d(np.arange(cur.size), keep):
                     exit_full[int(cur[lane])] = (
                         "CONVERGED" if done[lane] else "DIVERGED")
@@ -597,11 +576,8 @@ def _multigrid_batch(s, x0, var, lanes, l2_refe, verb=0):
         var.sc_dir, var.lr_dir = sc_next, lr_next
         it += 1
 
-    # Combine the split field in double precision so that the algebraic
-    # accuracy survives the export.
-    x = [tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(eh, el))
-         for eh, el in zip(e_hi, e_lo)]
-    return _restore_lanes(x, lanes, stash, ntask), l2_full, it, exit_full
+    lanes.export(e_hi, out, e_lo)
+    return l2_full, it, exit_full
 
 
 def solve_batch(model, sources, frequencies, mesh=None, axis="task",
@@ -745,46 +721,34 @@ def _solve_batch_fields(model, sfields, mesh, axis, verb, efields,
     dt = (solver._host_dtypes(host_model)[0] if var.sslsolver
           else lanes.dtypes[0])
 
-    def stacked(per_task):
-        # Staged as host tensors of ``dt``; _to_lanes copies them over.
-        with tracing.span('emg3d.fields.to_device'):
-            return _to_lanes(lanes, [
-                tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dt)
-                      for c in (f.fx, f.fy, f.fz)) for f in per_task])
-
-    s = stacked(sfields)
+    s = lanes.fields(sfields, dt)
 
     # Warm-start stack: per-task initial guesses (zeros where absent).
     x0 = None
     if guesses is not None:
-        x0 = stacked([fields.Field(model.grid, dtype=sf.field.dtype,
-                                   frequency=sf._frequency)
-                      if g is None else g
-                      for g, sf in zip(guesses, sfields)])
+        x0 = lanes.fields([fields.Field(model.grid, dtype=sf.field.dtype,
+                                        frequency=sf._frequency)
+                           if g is None else g
+                           for g, sf in zip(guesses, sfields)], dt)
 
     l2_refe = np.array([np.linalg.norm(sf.field) for sf in sfields])
     l2_refe = np.where(l2_refe == 0.0, 1.0, l2_refe)
 
+    # The solution, written by the solvers (None: a padding task).
+    out = [fields.Field(model.grid, dtype=sf.field.dtype,
+                        frequency=sf._frequency) for sf in sfields[:nsrc]]
+    out += [None] * pad
     if var.sslsolver:
-        x, l2, it_ssl, conv = _bicgstab_batch(s, var, lanes, verb=verb,
-                                              x0=x0)
+        l2, it_ssl, conv = _bicgstab_batch(s, var, lanes, out, verb=verb,
+                                           x0=x0)
         exit_messages = ["CONVERGED" if c else
                          "MAX. ITERATION REACHED, NOT CONVERGED"
                          for c in conv]
         it_mg = var.it
     else:
-        x, l2, it_mg, exit_messages = _multigrid_batch(
-            s, x0, var, lanes, l2_refe, verb=verb)
+        l2, it_mg, exit_messages = _multigrid_batch(
+            s, x0, var, lanes, l2_refe, out, verb=verb)
         it_ssl = 0
-
-    # Unstack into Fields (drop the padding).
-    out = []
-    with tracing.span('emg3d.fields.to_host'):
-        for i, sf in enumerate(sfields[:nsrc]):
-            f = fields.Field(model.grid, dtype=sf.field.dtype,
-                             frequency=sf._frequency)
-            f.fx, f.fy, f.fz = (c[i] for c in x)
-            out.append(f)
 
     info = {
         "it_mg": it_mg,
@@ -798,4 +762,4 @@ def _solve_batch_fields(model, sfields, mesh, axis, verb, efields,
         # meaningful per-task split).
         "runtime": round(time.perf_counter() - t0, 3),
     }
-    return out, info
+    return out[:nsrc], info

@@ -37,7 +37,8 @@ import numpy as np
 import scipy as sp
 import torch
 
-from emg3d_tpu_torch import config, fields, meshes, models, tracing, utils
+from emg3d_tpu_torch import (config, copies, fields, meshes, models,
+                             tracing, utils)
 from emg3d_tpu_torch.ops import operator, smoothers, transfer
 
 __all__ = ['solve', 'solve_source', 'multigrid', 'krylov', 'smoothing',
@@ -220,60 +221,8 @@ def solve_source(model, source, frequency, **kwargs):
 
 
 # ==========================================================================
-# Host <-> device.
+# Hierarchy construction (host-side, per semicoarsening direction).
 # ==========================================================================
-
-def _to_device(a, device, dtype=None):
-    """A host array (or host tensor) as a C-contiguous tensor of ``dtype``
-    on ``device``; counts ``h2d_bytes`` (of the device tensor) and
-    ``h2d_copies``."""
-    if isinstance(a, np.ndarray):
-        a = torch.from_numpy(np.ascontiguousarray(a))
-    t = a.to(device=device, dtype=dtype)
-    tracing.count('h2d_bytes', t.numel() * t.element_size())
-    tracing.count('h2d_copies')
-    return t
-
-
-def _to_host(t):
-    """A device tensor (or the Pieces of a sharded one) as a host NumPy
-    array; counts ``d2h_bytes`` and ``d2h_copies``."""
-    h = t.cpu()
-    tracing.count('d2h_bytes', h.numel() * h.element_size())
-    tracing.count('d2h_copies')
-    return h.numpy()
-
-
-def _scalar(t):
-    """A host read of device values, in an ``emg3d.sync`` span; counts
-    ``host_syncs``.  A 0-d tensor gives a float (a complex for a complex
-    tensor), any other a NumPy array."""
-    with tracing.span('emg3d.sync'):
-        tracing.count('host_syncs')
-        a = _to_host(t)
-    return a.item() if a.ndim == 0 else a
-
-
-def _field_to_dev(field, device, dtype):
-    """Field -> tuple of C-contiguous device tensors of ``dtype``.
-
-    The Field's components are Fortran-ordered views: they are made
-    C-contiguous before the copy.
-    """
-    return tuple(_to_device(f, device, dtype)
-                 for f in (field.fx, field.fy, field.fz))
-
-
-def _dev_to_field(e, grid, frequency, dtype):
-    """Tuple of device tensors -> Field (host), in an
-    ``emg3d.fields.to_host`` span."""
-    with tracing.span('emg3d.fields.to_host'):
-        out = fields.Field(grid, dtype=dtype, frequency=frequency)
-        out.fx = _to_host(e[0]).astype(dtype)
-        out.fy = _to_host(e[1]).astype(dtype)
-        out.fz = _to_host(e[2]).astype(dtype)
-    return out
-
 
 def _host_dtypes(vmodel):
     """(field dtype, real dtype) of the host precision for ``vmodel``."""
@@ -285,13 +234,10 @@ def _host_dtypes(vmodel):
 def _level_tensors(eta_x, eta_y, eta_z, zeta, h, device, dtypes):
     """(eta_x, eta_y, eta_z, zeta, hx, hy, hz) as device tensors."""
     cdt, rdt = dtypes
-    return (*(_to_device(a, device, cdt) for a in (eta_x, eta_y, eta_z)),
-            *(_to_device(a, device, rdt) for a in (zeta, *h)))
+    return (*(copies.to_device(a, device, cdt)
+              for a in (eta_x, eta_y, eta_z)),
+            *(copies.to_device(a, device, rdt) for a in (zeta, *h)))
 
-
-# ==========================================================================
-# Hierarchy construction (host-side, per semicoarsening direction).
-# ==========================================================================
 
 @dataclass
 class _Level:
@@ -439,11 +385,12 @@ def _build_hierarchy(vmodel, sc_dir, lr_dir, clevel_max, device, dtypes,
             with tracing.span('emg3d.hierarchy.to_device'):
                 lvl.rw = tuple(
                     None if w is None else tuple(
-                        _to_device(x, device, rdt) for x in w)
+                        copies.to_device(x, device, rdt) for x in w)
                     for w in rw)
                 lvl.pm = tuple(
-                    None if m is None else (_to_device(m[0], device),
-                                            _to_device(m[1], device, rdt))
+                    None if m is None else (
+                        copies.to_device(m[0], device),
+                        copies.to_device(m[1], device, rdt))
                     for m in pm)
 
         # Restrict model parameters (host numpy).
@@ -464,7 +411,8 @@ class _Hierarchies:
     static per-level c_lr_dir flags, so the tensors are shared across
     the line-relaxation cycling values (e.g. '456').  The levels are
     built on ``device`` (default ``var.device``), the fine ones sharded
-    where ``var.placement`` says so.
+    where ``var.placement`` says so; ``layout`` is the finest level's
+    layout there (None elsewhere), on which the solvers place fields.
     """
 
     def __init__(self, vmodel, var, device=None, eta_ratio=None):
@@ -481,16 +429,6 @@ class _Hierarchies:
                        else self.placement.layout(vmodel.grid.shape_cells))
         self._cache = {}
         self._acache = {}
-
-    def to_dev(self, field, dtype):
-        """A host Field on the finest level: device tensors, or Pieces of
-        its layout where it is sharded."""
-        with tracing.span('emg3d.fields.to_device'):
-            if self.layout is None:
-                return _field_to_dev(field, self.device, dtype)
-            from emg3d_tpu_torch.parallel import domain
-            return domain.place_field(self.layout, (field.fx, field.fy,
-                                                    field.fz), dtype)
 
     def get(self, sc_dir, lr_dir):
         key = (int(sc_dir), int(lr_dir))
@@ -679,6 +617,35 @@ def _cycle_correction(meta, levels, r, var, first):
     return de
 
 
+class _Cycle:
+    """The fine-grid tensors of a solver's cycles: the split iterate
+    ``e_hi``, ``e_lo`` and the residual ``r`` in working precision, the
+    source ``s`` and the norm ``l2`` (a 0-d tensor).  The per-operation
+    cycles rebind ``r`` and ``l2``; the steps' :class:`_CycleState`
+    copies into static tensors."""
+
+    def __init__(self, s, r, e_hi, e_lo):
+        self.s, self.r, self.e_hi, self.e_lo = s, r, e_hi, e_lo
+        self.l2 = None
+
+    def update(self, r, l2):
+        """Take the next residual and its norm."""
+        self.r, self.l2 = r, l2
+
+
+def _cycle(st, meta, levels, cfg, first, lvl2=None):
+    """One multigrid cycle on the state ``st``: the correction from
+    ``st.r``, its split accumulate and, with ``lvl2`` (level 0 of the
+    next cycle's hierarchy), the next residual and its norm.  The one
+    copy of the cycle's sequence, for a whole-cycle step's body and for
+    the per-operation path; ``cfg`` holds the settings and the level
+    trace."""
+    de = _cycle_correction(meta, levels, st.r, cfg, first)
+    _accumulate_(st.e_hi, st.e_lo, de)
+    if lvl2 is not None:
+        st.update(*_residual_norm_split(st.e_hi, st.e_lo, st.s, lvl2))
+
+
 def _cycle_qc(var):
     """ASCII rendering of the first multigrid cycle's level walk.
 
@@ -714,13 +681,6 @@ def _next_dirs(var):
     sc_next = next(var.sc_cycle) if var.sc_cycle else var.sc_dir
     lr_next = next(var.lr_cycle) if var.lr_cycle else var.lr_dir
     return sc_next, lr_next
-
-
-def _after_first_cycle(var):
-    if var.first_cycle:
-        var.first_cycle = False
-        if var.verb > 3:
-            var.cprint(_cycle_qc(var), 3)
 
 
 # ==========================================================================
@@ -788,26 +748,25 @@ def _use_cycle_graph(var):
     return mode == 'auto' and var.device.type == 'cuda'
 
 
+# The static slice of MGParameters a cycle step reads.
+_CYCLE_CFG = ('cycle', 'cycmax', 'nu_init', 'nu_pre', 'nu_coarse',
+              'nu_post')
+
+
 class _CycleCfg:
-    """The static slice of MGParameters a cycle step reads."""
+    """The values of ``_CYCLE_CFG`` (a step's key) and a level-trace
+    sink."""
 
-    __slots__ = ('cycle', 'cycmax', 'nu_init', 'nu_pre', 'nu_coarse',
-                 'nu_post', 'level_all')
+    __slots__ = (*_CYCLE_CFG, 'level_all')
 
-    def __init__(self, cycle, cycmax, nu_init, nu_pre, nu_coarse,
-                 nu_post):
-        self.cycle = cycle
-        self.cycmax = cycmax
-        self.nu_init = nu_init
-        self.nu_pre = nu_pre
-        self.nu_coarse = nu_coarse
-        self.nu_post = nu_post
-        self.level_all = []         # level-trace sink
+    def __init__(self, key):
+        for name, value in zip(_CYCLE_CFG, key):
+            setattr(self, name, value)
+        self.level_all = []
 
 
 def _cycle_cfg_key(var):
-    return (var.cycle, var.cycmax, var.nu_init, var.nu_pre,
-            var.nu_coarse, var.nu_post)
+    return tuple(getattr(var, name) for name in _CYCLE_CFG)
 
 
 def _leaves(x):
@@ -864,10 +823,9 @@ class _LevelStore:
 
 
 class _CycleState:
-    """The fine-grid tensors the steps of one grid read and write in place:
-    the split iterate ``e_hi``, ``e_lo`` and the residual ``r`` in working
-    precision, the source ``s`` and the norm ``l2`` in the precision of
-    the level-0 operator."""
+    """The static :class:`_Cycle` the steps of one grid read and write in
+    place, its source ``s`` and norm ``l2`` in the precision of the
+    level-0 operator."""
 
     def __init__(self, r, hdt):
         self.e_hi = tuple(torch.zeros_like(c) for c in r)
@@ -889,15 +847,29 @@ class _CycleState:
             else:
                 d.copy_(e_hi[i])
 
+    def update(self, r, l2):
+        """Copy the next residual and its norm in."""
+        for d, t in zip(self.r, r):
+            d.copy_(t)
+        self.l2.copy_(l2)
 
-def _cycle_state(r, ops64):
-    """The state of the fine grid of ``r`` (the working precision) and of
-    the level-0 operator ``ops64``, shared by every step on that grid."""
-    key = (tuple(c.shape for c in r), r[0].dtype, ops64[0].dtype,
-           r[0].device)
+
+def _cycle_start(graph, s, r, lvl0, e_hi=None, e_lo=None):
+    """The state of a solver's cycles from ``s``, ``r`` and the split
+    iterate ``e_hi`` (zero where None), ``e_lo`` (a zero, made where
+    None): with ``graph`` copied into the static state that every step
+    on the grid of ``r`` shares, else a :class:`_Cycle` of them."""
+    if not graph:
+        def zero():
+            return tuple(torch.zeros_like(c) for c in r)
+        return _Cycle(s, r, zero() if e_hi is None else e_hi,
+                      zero() if e_lo is None else e_lo)
+    hdt = lvl0.ops64[0].dtype
+    key = (tuple(c.shape for c in r), r[0].dtype, hdt, r[0].device)
     state = _STATES.get(key)
     if state is None:
-        state = _STATES[key] = _CycleState(r, ops64[0].dtype)
+        state = _STATES[key] = _CycleState(r, hdt)
+    state.start(s, r, e_hi)
     return state
 
 
@@ -912,10 +884,8 @@ def _level_store(meta, levels):
 
 
 class _CycleStep:
-    """One multigrid cycle on ``state``: the correction from the residual
-    ``state.r``, its split accumulate into ``state.e_hi``/``e_lo`` and,
-    with ``store2``, the next residual and its norm with ``store2``'s
-    level-0 operator, in place in ``state``.
+    """One :func:`_cycle` on the static ``state`` and the levels of
+    ``store``, with the next residual on ``store2``'s level 0 where given.
 
     The first use runs the body operation by operation, which computes
     the cycle and loads every kernel it launches, and then captures the
@@ -933,7 +903,7 @@ class _CycleStep:
 
     def __init__(self, meta, cfg_key, first, state, store, store2=None):
         self.meta = meta
-        self.cfg = _CycleCfg(*cfg_key)
+        self.cfg = _CycleCfg(cfg_key)
         self.first = first
         self.state = state
         self.store = store
@@ -944,17 +914,10 @@ class _CycleStep:
         self.launches = (0, 0)      # (gs_phase, line_phase) in the graph
 
     def _body(self):
-        st = self.state
         self.cfg.level_all = []
-        de = _cycle_correction(self.meta, self.store.levels, st.r, self.cfg,
-                               self.first)
-        _accumulate_(st.e_hi, st.e_lo, de)
-        if self.store2 is not None:
-            r, l2 = _residual_norm_split(st.e_hi, st.e_lo, st.s,
-                                         self.store2.levels[0])
-            for d, t in zip(st.r, r):
-                d.copy_(t)
-            st.l2.copy_(l2)
+        _cycle(self.state, self.meta, self.store.levels, self.cfg,
+               self.first,
+               None if self.store2 is None else self.store2.levels[0])
 
     def _capture(self):
         global CYCLE_CAPTURES, _POOL
@@ -1006,35 +969,41 @@ def _cached_step(key, make):
     return step
 
 
-def _whole_step(meta, meta2, cfg_key, first, state, levels, levels2):
-    """Run one cycle, its accumulate and the next residual as a step;
-    returns the norm (the one host sync of the cycle).
-
-    ``meta``/``levels`` are the current hierarchy, ``meta2``/``levels2``
-    the next one (they differ under semicoarsening or line-relaxation
-    cycling); ``first`` is whether the cycle's initial smoothing runs
-    (the first cycle with ``nu_init > 0``).  The step is cached on
-    ``(meta, meta2, cfg_key, first)``, the working dtype and the device.
+def _run_cycle(var, graph, st, hier, first, last=False):
+    """One cycle of a solver on its state ``st`` and hierarchies
+    ``hier``: a whole-cycle step where ``graph``, else :func:`_cycle`
+    operation by operation; then the next semicoarsening and
+    line-relaxation directions (reference solver.py:639-642).  Returns
+    the next residual's norm (on the next directions' hierarchy), the
+    cycle's one host sync; None for the preconditioner's ``last``
+    cycle, which computes none.  A step is cached on both hierarchies'
+    static levels, the settings, whether the initial smoothing runs,
+    the working dtype and the device.
     """
+    sc_next, lr_next = _next_dirs(var)
+    meta, levels = hier.get(var.sc_dir, var.lr_dir)
+    meta2, levels2 = (None, None) if last else hier.get(sc_next, lr_next)
+    first = first and var.nu_init > 0
     with tracing.span('emg3d.cycle.step') as sp:
-        store = _level_store(meta, levels)
-        store2 = _level_store(meta2, levels2)
-        key = ('step', meta, meta2, cfg_key, first, state.r[0].dtype,
-               state.r[0].device)
-        sp.set(replayed=_cached_step(key, lambda: _CycleStep(
-            meta, cfg_key, first, state, store, store2))())
-        return _scalar(state.l2)
-
-
-def _whole_corr(meta, cfg_key, first, state, levels):
-    """Run one cycle and its accumulate as a step, without the next
-    residual: the last cycle of the preconditioner."""
-    with tracing.span('emg3d.cycle.step') as sp:
-        store = _level_store(meta, levels)
-        key = ('corr', meta, cfg_key, first, state.r[0].dtype,
-               state.r[0].device)
-        sp.set(replayed=_cached_step(key, lambda: _CycleStep(
-            meta, cfg_key, first, state, store))())
+        if graph:
+            store = _level_store(meta, levels)
+            store2 = None if last else _level_store(meta2, levels2)
+            key = (meta, meta2, _cycle_cfg_key(var), first, st.r[0].dtype,
+                   st.r[0].device)
+            sp.set(replayed=_cached_step(key, lambda: _CycleStep(
+                meta, key[2], first, st, store, store2))())
+        else:
+            sp.set(replayed=False)
+            _cycle(st, meta, levels, var, first,
+                   None if last else levels2[0])
+        l2 = None if last else copies.scalar(st.l2)
+    var.sc_dir, var.lr_dir = sc_next, lr_next
+    var.it += 1
+    if var.first_cycle:
+        var.first_cycle = False
+        if var.verb > 3:
+            var.cprint(_cycle_qc(var), 3)
+    return l2
 
 
 # ==========================================================================
@@ -1054,52 +1023,26 @@ def multigrid(model, sfield, efield, var):
     Fields (efield is updated in place).
     """
     hier = _Hierarchies(model, var)
-    meta, levels = hier.get(var.sc_dir, var.lr_dir)
+    lvl0 = hier.get(var.sc_dir, var.lr_dir)[1][0]
     wdt = hier.dtypes[0]
 
-    s = hier.to_dev(sfield, wdt)
-    e_hi = hier.to_dev(efield, wdt)
+    s = copies.field_to_device(sfield, hier.device, wdt, hier.layout)
+    e_hi = copies.field_to_device(efield, hier.device, wdt, hier.layout)
     e_lo = tuple(torch.zeros_like(c) for c in e_hi)
 
-    r, l2 = _residual_norm_split(e_hi, e_lo, s, levels[0])
-    l2_last = _scalar(l2)
+    r, l2 = _residual_norm_split(e_hi, e_lo, s, lvl0)
+    l2_last = copies.scalar(l2)
     l2_stag = np.ones(var.maxcycle) * l2_last
 
     graph = _use_cycle_graph(var)
-    if graph:
-        state = _cycle_state(r, levels[0].ops64)
-        state.start(s, r, e_hi)
-        e_hi, e_lo = state.e_hi, state.e_lo
-        cfg_key = _cycle_cfg_key(var)
+    st = _cycle_start(graph, s, r, lvl0, e_hi, e_lo)
 
     it = 0
-    first = True
     while True:
         l2_prev = l2_last
         l2_stag[(it - 1) % var.maxcycle] = l2_last
-
-        # Cycle semicoarsening and line-relaxation directions (applied
-        # to the NEXT residual evaluation, reference solver.py:639-642).
-        sc_next, lr_next = _next_dirs(var)
-
-        meta2, levels2 = hier.get(sc_next, lr_next)
-        if graph:
-            l2_last = _whole_step(meta, meta2, cfg_key,
-                                  first and var.nu_init > 0, state, levels,
-                                  levels2)
-        else:
-            with tracing.span('emg3d.cycle.step', replayed=False):
-                de = _cycle_correction(meta, levels, r, var, first)
-                _accumulate_(e_hi, e_lo, de)
-                r, l2 = _residual_norm_split(e_hi, e_lo, s, levels2[0])
-                l2_last = _scalar(l2)
-        meta, levels = meta2, levels2
-        var.sc_dir, var.lr_dir = sc_next, lr_next
-        _after_first_cycle(var)
-        first = False
-
+        l2_last = _run_cycle(var, graph, st, hier, it == 0)
         it += 1
-        var.it += 1
 
         var.runtime_at_cycle = np.r_[var.runtime_at_cycle, var.time.elapsed]
         var.error_at_cycle = np.r_[var.error_at_cycle, l2_last]
@@ -1115,17 +1058,7 @@ def multigrid(model, sfield, efield, var):
             break
 
     var.l2 = l2_last
-
-    # Combine the split field on the host in the Field's (float64)
-    # dtype so the achieved algebraic accuracy survives the export.
-    dtype = efield.field.dtype
-    with tracing.span('emg3d.fields.to_host'):
-        out = fields.Field(efield.grid, dtype=dtype,
-                           frequency=efield._frequency)
-        out.fx, out.fy, out.fz = (
-            _to_host(h).astype(dtype) + _to_host(lo).astype(dtype)
-            for h, lo in zip(e_hi, e_lo))
-    efield.field = out.field
+    copies.field_to_host(st.e_hi, efield, lo=st.e_lo)
 
 
 def _terminate(var, l2_last, l2_stag, it):
@@ -1177,7 +1110,6 @@ def krylov(model, sfield, efield, var):
         return operator.amat_x(*e, *lvl0.ops64)
 
     graph = _use_cycle_graph(var)
-    cfg_key = _cycle_cfg_key(var)
 
     def mg_precond(s):
         """Apply up-to-maxcycle MG cycles to s, starting from zero.
@@ -1186,45 +1118,14 @@ def krylov(model, sfield, efield, var):
         (solver.py:710-728), incl. the divergence/stagnation abort of the
         outer Krylov solver via _ConvergenceError.
         """
-        r = tuple(c.to(wdt) for c in s)
-        if graph:
-            state = _cycle_state(r, lvl0.ops64)
-            state.start(s, r)
-            e_hi, e_lo = state.e_hi, state.e_lo
-        else:
-            e_hi = tuple(torch.zeros_like(c) for c in r)
-            e_lo = tuple(torch.zeros_like(c) for c in r)
+        st = _cycle_start(graph, s, tuple(c.to(wdt) for c in s), lvl0)
         l2_stag = np.ones(var.maxcycle) * np.inf
         it = 0
-        first = True
         l2_refe = None
         while True:
-            sc_next, lr_next = _next_dirs(var)
-            meta, levels = hier.get(var.sc_dir, var.lr_dir)
-            last = it + 1 == var.maxit
-            first_eff = first and var.nu_init > 0
-
-            if graph and last:
-                _whole_corr(meta, cfg_key, first_eff, state, levels)
-            elif graph:
-                meta2, levels2 = hier.get(sc_next, lr_next)
-                l2_last = _whole_step(meta, meta2, cfg_key, first_eff,
-                                      state, levels, levels2)
-            else:
-                with tracing.span('emg3d.cycle.step', replayed=False):
-                    de = _cycle_correction(meta, levels, r, var, first)
-                    _accumulate_(e_hi, e_lo, de)
-                    if not last:
-                        _, levels2 = hier.get(sc_next, lr_next)
-                        r, l2 = _residual_norm_split(e_hi, e_lo, s,
-                                                     levels2[0])
-                        l2_last = _scalar(l2)
-            var.sc_dir, var.lr_dir = sc_next, lr_next
-            _after_first_cycle(var)
-            first = False
+            l2_last = _run_cycle(var, graph, st, hier, it == 0,
+                                 last=it + 1 == var.maxit)
             it += 1
-            var.it += 1
-
             if it == var.maxit:
                 break
             if l2_refe is None:
@@ -1240,7 +1141,8 @@ def krylov(model, sfield, efield, var):
                 var.exit_message = "STAGNATED"
                 raise _ConvergenceError
             l2_stag[(it - 1) % var.maxcycle] = l2_last
-        return tuple(h.to(hdt) + lo.to(hdt) for h, lo in zip(e_hi, e_lo))
+        return tuple(h.to(hdt) + lo.to(hdt)
+                     for h, lo in zip(st.e_hi, st.e_lo))
 
     def callback():
         var.ssl_it += 1
@@ -1251,8 +1153,8 @@ def krylov(model, sfield, efield, var):
                 f"   [{var.time.now}]   {var.l2/var.l2_refe:.3e} "
                 f" after {var.ssl_it:3} {var.sslsolver}-cycles", 3)
 
-    s = hier.to_dev(sfield, hdt)
-    e = hier.to_dev(efield, hdt)
+    s = copies.field_to_device(sfield, hier.device, hdt, hier.layout)
+    e = copies.field_to_device(efield, hier.device, hdt, hier.layout)
 
     native = {'bicgstab': _bicgstab, 'cgs': _cgs,
               'gcrotmk': _gcrotmk}[var.sslsolver]
@@ -1272,10 +1174,7 @@ def krylov(model, sfield, efield, var):
     else:
         var.exit_message = "CONVERGED"
     var.cprint("   > " + var.exit_message, 2)
-
-    out = _dev_to_field(e, efield.grid, efield._frequency,
-                        efield.field.dtype)
-    efield.field = out.field
+    copies.field_to_host(e, efield)
 
 
 def _dot(a, b):
@@ -1287,15 +1186,15 @@ def _dot(a, b):
     else:
         dev = a[0].layout.devices()[0]
         val = sum(x.vdot(y, dev) for x, y in zip(a, b))
-    return _scalar(val)
+    return copies.scalar(val)
 
 
 def _norm_tup(a):
     if isinstance(a[0], torch.Tensor):
-        return _scalar(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2)
+        return copies.scalar(torch.sqrt(sum(torch.sum(torch.abs(x) ** 2)
                                       for x in a)))
     dev = a[0].layout.devices()[0]
-    return _scalar(torch.sqrt(sum(x.sqsum(dev) for x in a)))
+    return copies.scalar(torch.sqrt(sum(x.sqsum(dev) for x in a)))
 
 
 def _axpy(a, alpha, b):
@@ -1548,12 +1447,9 @@ def smoothing(model, sfield, efield, nu, lr_dir, device=None):
     ops = _level_tensors(model.eta_x, model.eta_y, model.eta_z, model.zeta,
                          model.grid.h, device, dtypes)
     c_lr_dir = _current_lr_dir(lr_dir, model.grid.shape_cells)
-    e = _field_to_dev(efield, device, dtypes[0])
-    s = _field_to_dev(sfield, device, dtypes[0])
-    e = _smooth(e, s, _Level(ops), c_lr_dir, nu)
-    out = _dev_to_field(e, efield.grid, efield._frequency,
-                        efield.field.dtype)
-    efield.field = out.field
+    e = copies.field_to_device(efield, device, dtypes[0])
+    s = copies.field_to_device(sfield, device, dtypes[0])
+    copies.field_to_host(_smooth(e, s, _Level(ops), c_lr_dir, nu), efield)
 
 
 def residual(model, sfield, efield, norm=False, device=None):
@@ -1566,12 +1462,15 @@ def residual(model, sfield, efield, norm=False, device=None):
     device = config.resolve_device(device)
     lvl = _level_tensors(model.eta_x, model.eta_y, model.eta_z, model.zeta,
                          model.grid.h, device, _host_dtypes(model))
-    r = operator.residual(*_field_to_dev(sfield, device, lvl[0].dtype),
-                          *_field_to_dev(efield, device, lvl[0].dtype), *lvl)
+    r = operator.residual(
+        *copies.field_to_device(sfield, device, lvl[0].dtype),
+        *copies.field_to_device(efield, device, lvl[0].dtype), *lvl)
     if norm:
-        return _scalar(operator.residual_norm(*r))
-    return _dev_to_field(r, sfield.grid, sfield._frequency,
-                         sfield.field.dtype)
+        return copies.scalar(operator.residual_norm(*r))
+    out = fields.Field(sfield.grid, dtype=sfield.field.dtype,
+                       frequency=sfield._frequency)
+    copies.field_to_host(r, out)
+    return out
 
 
 def restriction(model, sfield, res, sc_dir, device=None):
@@ -1621,15 +1520,16 @@ def restriction(model, sfield, res, sc_dir, device=None):
                 model.grid.h[i],
                 getattr(cgrid, 'nodes_' + c),
                 getattr(cgrid, 'cell_centers_' + c), ch[i])
-            rw.append(tuple(_to_device(x, device, dtypes[1]) for x in w))
+            rw.append(tuple(copies.to_device(x, device, dtypes[1])
+                            for x in w))
         else:
             rw.append(None)
 
-    r = _field_to_dev(res, device, dtypes[0])
-    cs = transfer.restrict(*r, tuple(rw), coarsen)
-
-    csfield = _dev_to_field(cs, cgrid, sfield._frequency,
-                            sfield.field.dtype)
+    cs = transfer.restrict(*copies.field_to_device(res, device, dtypes[0]),
+                           tuple(rw), coarsen)
+    csfield = fields.Field(cgrid, dtype=sfield.field.dtype,
+                           frequency=sfield._frequency)
+    copies.field_to_host(cs, csfield)
     cefield = fields.Field(cgrid, dtype=sfield.field.dtype,
                            frequency=sfield._frequency)
 
@@ -1652,16 +1552,15 @@ def prolongation(efield, cefield, sc_dir, device=None):
         if coarsen[i]:
             idx, w = transfer.prolong_meta(
                 getattr(cgrid, 'nodes_' + c), getattr(grid, 'nodes_' + c))
-            pm.append((_to_device(idx, device),
-                       _to_device(w, device, dtypes[1])))
+            pm.append((copies.to_device(idx, device),
+                       copies.to_device(w, device, dtypes[1])))
         else:
             pm.append(None)
 
-    e = _field_to_dev(efield, device, dtypes[0])
-    ce = _field_to_dev(cefield, device, dtypes[0])
-    e = transfer.prolong(*e, *ce, tuple(pm), coarsen)
-    out = _dev_to_field(e, grid, efield._frequency, efield.field.dtype)
-    efield.field = out.field
+    e = copies.field_to_device(efield, device, dtypes[0])
+    ce = copies.field_to_device(cefield, device, dtypes[0])
+    copies.field_to_host(transfer.prolong(*e, *ce, tuple(pm), coarsen),
+                         efield)
 
 
 class RegularGridProlongator:

@@ -21,7 +21,8 @@ Spans of the solve path (each ``emg3d.*``):
   model restricted to the next level) and ``hierarchy.to_device`` (a
   level's tensors copied);
 - ``fields.to_device`` and ``fields.to_host``: source and initial fields
-  to the device, the result back;
+  to the device, the result back (each a call of
+  ``copies.field_to_device`` or ``copies.field_to_host``);
 - ``cycle.step`` (``replayed``): one multigrid cycle, a replay of its
   CUDA graph or operation by operation;
 - ``sync``: one host read of device values.
@@ -46,8 +47,9 @@ and solve roots keep, in ``attrs['counts']``, how much each of
 :func:`counts` grew while they were open.
 
 Counters (always on; :func:`count` adds to them): ``h2d_bytes``,
-``h2d_copies`` (``solver._to_device``), ``d2h_bytes``, ``d2h_copies``
-(``solver._to_host``), ``host_syncs`` (``solver._scalar``),
+``h2d_copies``, ``d2h_bytes``, ``d2h_copies`` and ``host_syncs``
+(:mod:`emg3d_tpu_torch.copies`, through which every copy of the solve
+path, the batch engine and ``fields.get_magnetic_field`` passes),
 ``hierarchy_builds``, ``step_misses`` and ``step_evictions`` (the
 whole-cycle step cache), the launches of the hand-written kernels that
 graphs replay, ``sim_tasks`` (solves the survey layer dispatched),
