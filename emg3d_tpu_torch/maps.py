@@ -11,6 +11,8 @@ Rebuild of the reference's emg3d/maps.py.
 - The volume-average regridding (reference's numba kernels
   ``interp_volume_average``/``_volume_average_weights``, maps.py:555-664) is
   implemented as *vectorized numpy* (np.add.at scatter) — no scalar loops.
+  Its adjoint, ``interp_volume_average_adj``, applies the same separable
+  weights as three 1-D matrices, one contraction per axis.
 - ``interp_edges_to_vol_averages`` (reference maps.py:667-719) and the
   regridding adjoints are host-side numpy: gradient assembly happens once
   per solve, outside the hot device loop.
@@ -372,20 +374,32 @@ def interp_volume_average_adj(oval, ogrid, nval, ngrid):
     as the forward map: forward is ``new[o] = Σ_i w_io val[i] / V_n[o]``,
     so the adjoint is ``oval[i] += Σ_o w_io nval[o] / V_n[o]``.
 
+    The weights are separable, ``w_io = w_x w_y w_z``, so the sum is taken
+    axis by axis: one 1-D weight matrix ``W_a`` of shape (ogrid cells,
+    ngrid cells) per axis, contracted with ``nval / V_n`` along that axis,
+    the axis that shrinks the array most first.
+
     ``oval``/``nval`` have shape (3, \\*grid.shape_cells); used to bring
     adjoint-state gradients from computational grids back to the
     inversion grid (reference simulations.py:1064-1067).
     """
-    wx, ixi, ixo = _volume_average_weights(ogrid.nodes_x, ngrid.nodes_x)
-    wy, iyi, iyo = _volume_average_weights(ogrid.nodes_y, ngrid.nodes_y)
-    wz, izi, izo = _volume_average_weights(ogrid.nodes_z, ngrid.nodes_z)
+    mats = []
+    for x_i, x_o in zip((ogrid.nodes_x, ogrid.nodes_y, ogrid.nodes_z),
+                        (ngrid.nodes_x, ngrid.nodes_y, ngrid.nodes_z)):
+        w, ix_i, ix_o = _volume_average_weights(x_i, x_o)
+        n_i, n_o = x_i.size - 1, x_o.size - 1
+        # Where ngrid reaches past ogrid, the clipped ix_i repeat: the
+        # weights of a repeated (ix_i, ix_o) pair add up.
+        mats.append(np.bincount(ix_i * n_o + ix_o, weights=w,
+                                minlength=n_i * n_o).reshape(n_i, n_o))
+    axes = sorted(range(3), key=lambda a: mats[a].shape[0] / mats[a].shape[1])
 
     vol_n = ngrid.cell_volumes.reshape(ngrid.shape_cells, order="F")
     for c in range(oval.shape[0]):
-        scaled = nval[c] / vol_n
-        contrib = (wx[:, None, None] * wy[None, :, None]
-                   * wz[None, None, :] * scaled[np.ix_(ixo, iyo, izo)])
-        np.add.at(oval[c], np.ix_(ixi, iyi, izi), contrib)
+        out = nval[c] / vol_n
+        for a in axes:
+            out = np.moveaxis(np.tensordot(mats[a], out, axes=(1, a)), 0, a)
+        oval[c] += out
     return oval
 
 

@@ -856,6 +856,7 @@ class Simulation:
                     oz=grad[2, ...])
 
                 if self.model.grid != gfield.grid:
+                    tracing.count('gradient_regrid_tasks')
                     maps.interp_volume_average_adj(
                         oval=gradient, ogrid=self.model.grid,
                         nval=grad, ngrid=gfield.grid)

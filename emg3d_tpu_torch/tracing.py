@@ -54,8 +54,10 @@ path, the batch engine and ``fields.get_magnetic_field`` passes),
 whole-cycle step cache), the launches of the hand-written kernels that
 graphs replay, ``sim_tasks`` (solves the survey layer dispatched),
 ``rfield_receivers`` (receiver source fields summed into adjoint
-sources) and ``rfield_point_receivers`` (those of them that were
-electric points, added at their few entries alone).  :func:`counts`
+sources), ``rfield_point_receivers`` (those of them that were
+electric points, added at their few entries alone) and
+``gradient_regrid_tasks`` (tasks whose gradient was mapped from their
+computational grid back to the model's grid).  :func:`counts`
 reads them with the counters that live in their modules
 (``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
 ``ops.gs_phase.LAUNCHES``, ``ops.line_phase.LAUNCHES``) under one set of
@@ -81,7 +83,7 @@ KERNELS = ('gs_phase', 'line_phase')
 COUNTERS = ('h2d_bytes', 'h2d_copies', 'd2h_bytes', 'd2h_copies',
             'host_syncs', 'hierarchy_builds', 'step_misses',
             'step_evictions', 'sim_tasks', 'rfield_receivers',
-            'rfield_point_receivers',
+            'rfield_point_receivers', 'gradient_regrid_tasks',
             *(f'{kind}_launches.{k}' for kind in ('replayed', 'captured')
               for k in KERNELS))
 
