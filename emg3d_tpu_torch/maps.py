@@ -9,10 +9,10 @@ Rebuild of the reference's emg3d/maps.py.
 - ``interpolate`` (reference maps.py:232-497) is host-side: regridding is
   setup-time work between solves, not part of the jitted compute path.
 - The volume-average regridding (reference's numba kernels
-  ``interp_volume_average``/``_volume_average_weights``, maps.py:555-664) is
-  implemented as *vectorized numpy* (np.add.at scatter) — no scalar loops.
-  Its adjoint, ``interp_volume_average_adj``, applies the same separable
-  weights as three 1-D matrices, one contraction per axis.
+  ``interp_volume_average``/``_volume_average_weights``, maps.py:555-664)
+  applies the separable weights as three sparse 1-D matrices, one product
+  per axis — no scalar loops.  Its adjoint, ``interp_volume_average_adj``,
+  applies the same weights as three 1-D matrices, one contraction per axis.
 - ``interp_edges_to_vol_averages`` (reference maps.py:667-719) and the
   regridding adjoints are host-side numpy: gradient assembly happens once
   per solve, outside the hot device loop.
@@ -332,18 +332,31 @@ def interp_volume_average(nodes_x, nodes_y, nodes_z, values, new_nodes_x,
                           new_nodes_y, new_nodes_z, new_values, new_vol):
     """Conservative volume-average regridding of cell properties.
 
-    Vectorized scatter-add version of the reference's numba kernel
-    (emg3d/maps.py:555-616; discretize/Capriotti algorithm).  The result is
-    added to ``new_values`` and normalized by the new cell volumes.
+    The reference's numba kernel (emg3d/maps.py:555-616;
+    discretize/Capriotti algorithm) sums ``w_io values[i]`` over the
+    merged cells.  The weights are separable, ``w_io = w_x w_y w_z``, so
+    the sum is taken axis by axis: one sparse 1-D weight matrix of shape
+    (new cells, cells) per axis, applied along that axis, the axis that
+    shrinks the array most first.  The result is added to ``new_values``
+    and normalized by the new cell volumes.
     """
-    wx, ixi, ixo = _volume_average_weights(nodes_x, new_nodes_x)
-    wy, iyi, iyo = _volume_average_weights(nodes_y, new_nodes_y)
-    wz, izi, izo = _volume_average_weights(nodes_z, new_nodes_z)
+    mats = []
+    for x_i, x_o in zip((nodes_x, nodes_y, nodes_z),
+                        (new_nodes_x, new_nodes_y, new_nodes_z)):
+        w, ix_i, ix_o = _volume_average_weights(x_i, x_o)
+        # Where the new grid reaches past the old, the clipped ix_i
+        # repeat: the weights of a repeated (ix_o, ix_i) pair add up.
+        mats.append(sp.sparse.csr_array(
+            (w, (ix_o, ix_i)), shape=(x_o.size - 1, x_i.size - 1)))
+    axes = sorted(range(3), key=lambda a: mats[a].shape[0] / mats[a].shape[1])
 
-    # Outer product of contributions; scatter-add into the output cells.
-    contrib = (wx[:, None, None] * wy[None, :, None] * wz[None, None, :]
-               * values[np.ix_(ixi, iyi, izi)])
-    np.add.at(new_values, np.ix_(ixo, iyo, izo), contrib)
+    out = values
+    for a in axes:
+        moved = np.moveaxis(out, a, 0)
+        rest = moved.shape[1:]
+        out = np.moveaxis((mats[a] @ moved.reshape(moved.shape[0], -1))
+                          .reshape(mats[a].shape[0], *rest), 0, a)
+    new_values += out
     new_values /= new_vol
     return new_values
 

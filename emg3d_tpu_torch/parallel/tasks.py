@@ -87,6 +87,8 @@ def solve(inp):
             'always_return': True}
     with tracing.span('emg3d.sim.model'):
         model = task['model'].interpolate_to_grid(grid)
+        # A model already on the task's grid is returned as it is.
+        tracing.count('sim_models', int(model is not task['model']))
     efield, info = run(model=model, efield=task['efield'], **how, **opts)
 
     if path:

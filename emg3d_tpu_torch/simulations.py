@@ -393,17 +393,22 @@ class Simulation:
             if self.shape_classes and key_fields:
                 self._grid_all_snapped(key_fields, extras)
             else:
-                cache[key] = meshes.construct_mesh(
-                    **self._construct_inp(extras, source, freq))
+                cache[key] = self._construct_mesh(extras, source, freq)
         return cache[key]
 
-    def _construct_inp(self, extras, source, freq):
+    def _construct_mesh(self, extras, source, freq):
+        """One computational grid of a sharing unit, from the gridding
+        options and the unit's frequency and/or source centre."""
         inp = dict(self.gridding_opts)
         if 'frequency' in extras:
             inp['frequency'] = self.survey.frequencies[freq]
         if 'center' in extras:
             inp['center'] = self.survey.sources[source].center
-        return inp
+        with tracing.span('emg3d.sim.grid') as span:
+            tracing.count('sim_grids')
+            grid = meshes.construct_mesh(**inp)
+            span.set(shape=grid.shape_cells)
+        return grid
 
     def _grid_all_snapped(self, key_fields, extras):
         """Grid every sharing key eagerly, then snap shapes to classes.
@@ -421,8 +426,7 @@ class Simulation:
         srcs = list(self.survey.sources) if 's' in key_fields else [None]
         freqs = (list(self.survey.frequencies) if 'f' in key_fields
                  else [None])
-        raw = {(s, f): meshes.construct_mesh(
-                   **self._construct_inp(extras, s, f))
+        raw = {(s, f): self._construct_mesh(extras, s, f)
                for s in srcs for f in freqs}
         growth = (1.35 if self.shape_classes is True
                   else float(self.shape_classes))
@@ -660,6 +664,7 @@ class Simulation:
         for grid, pairs in groups.values():
             gmodel = (self.model if grid is self.model.grid
                       else self.get_model(*pairs[0]))
+            tracing.count('sim_models', int(gmodel is not self.model))
             out.append((pairs, gmodel))
         return out
 

@@ -38,7 +38,9 @@ Spans of the survey layer (``Simulation`` and ``parallel.tasks``):
   its receivers' source fields;
 - ``sim.gradient.assemble``: field products, their cell and volume
   averages onto the model's grid and the chain rule of the mapping;
-- ``sim.model``: one task's model interpolated onto its grid.
+- ``sim.model``: one task's model interpolated onto its grid;
+- ``sim.grid`` (``shape``): one computational grid constructed
+  (``meshes.construct_mesh``) for a sharing unit of the gridding.
 
 A root is a span opened with none open on its thread.  A solve root
 (:func:`roots`) is an ``emg3d.solve`` or ``emg3d.batch.solve`` span with
@@ -55,9 +57,12 @@ whole-cycle step cache), the launches of the hand-written kernels that
 graphs replay, ``sim_tasks`` (solves the survey layer dispatched),
 ``rfield_receivers`` (receiver source fields summed into adjoint
 sources), ``rfield_point_receivers`` (those of them that were
-electric points, added at their few entries alone) and
+electric points, added at their few entries alone),
 ``gradient_regrid_tasks`` (tasks whose gradient was mapped from their
-computational grid back to the model's grid).  :func:`counts`
+computational grid back to the model's grid), ``sim_grids``
+(computational grids constructed, one ``emg3d.sim.grid`` span each)
+and ``sim_models`` (models volume-averaged onto a task's grid, or onto
+a batch group's).  :func:`counts`
 reads them with the counters that live in their modules
 (``solver.CYCLE_CAPTURES``, ``CYCLE_REPLAYS``,
 ``ops.gs_phase.LAUNCHES``, ``ops.line_phase.LAUNCHES``) under one set of
@@ -84,6 +89,7 @@ COUNTERS = ('h2d_bytes', 'h2d_copies', 'd2h_bytes', 'd2h_copies',
             'host_syncs', 'hierarchy_builds', 'step_misses',
             'step_evictions', 'sim_tasks', 'rfield_receivers',
             'rfield_point_receivers', 'gradient_regrid_tasks',
+            'sim_grids', 'sim_models',
             *(f'{kind}_launches.{k}' for kind in ('replayed', 'captured')
               for k in KERNELS))
 

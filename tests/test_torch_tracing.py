@@ -22,7 +22,11 @@ keep the file to a few seconds):
 - ``EMG3D_TPU_CYCLE_JIT=1`` with a step cache of one counts its misses
   and evictions;
 - a 2-lane ``solve_batch_fields`` is one ``emg3d.batch.solve`` root with
-  ``lanes=2``.
+  ``lanes=2``;
+- every counter of ``tracing.COUNTERS`` but the kernels' replayed and
+  captured launches (among them the survey layer's ``sim_grids`` and
+  ``sim_models``) is named in the module's docstring, and so is every
+  span of the survey layer.
 """
 
 import collections
@@ -227,3 +231,15 @@ def test_batch_root(problem):
     assert root.attrs['counts']['hierarchy_builds'] == 1
     assert root.attrs['counts']['d2h_bytes'] >= 2 * field_bytes(N)
     assert {s.root for s in tracing.spans()} == {root.id}
+
+
+SURVEY_SPANS = ('sim.compute', 'sim.responses', 'sim.misfit', 'sim.gradient',
+                'sim.bcompute', 'sim.rfield', 'sim.gradient.assemble',
+                'sim.model', 'sim.grid')
+
+
+@pytest.mark.parametrize('name', [
+    c for c in tracing.COUNTERS if '_launches.' not in c] + list(SURVEY_SPANS))
+def test_documented(name):
+    # The kernels' replayed and captured launches are named as a group.
+    assert f'``{name}``' in tracing.__doc__

@@ -1,4 +1,4 @@
-"""PyTorch port, the adjoint of volume averaging as three 1-D weight
+"""PyTorch port, volume averaging and its adjoint as three 1-D weight
 matrices, on the CPU.
 
 ``maps.interp_volume_average_adj`` maps values on a computational grid
@@ -7,11 +7,18 @@ back onto the inversion mesh (the transpose of
 per axis, contracted axis by axis.  It is held against the 3-D scatter
 it replaces, kept verbatim below as the oracle
 (``_scatter_volume_average_adj``), to 1e-13 of the largest entry, and
-against the unchanged forward map by a dot-product test, on grid pairs
+against the forward map by a dot-product test, on grid pairs
 where the computational grid reaches past the mesh on one axis and lies
 inside it on another, where the nodes of one axis coincide, and with a
 one-cell axis, for 1 and 3 leading components.  It adds into ``oval``
 and returns that array.
+
+The forward map, ``maps.interp_volume_average`` (three sparse 1-D
+matrices, applied axis by axis), is held against the 3-D scatter it
+replaces, kept verbatim below (``_scatter_volume_average``), to 1e-13
+of the largest entry, on the same grid pairs, for C- and
+Fortran-ordered values; it adds into ``new_values`` and divides by the
+new cells' volumes.
 
 The counter ``gradient_regrid_tasks`` grows by the (source, frequency)
 tasks of a gradient whose computational grids differ from the model's
@@ -73,6 +80,26 @@ def _scatter_volume_average_adj(oval, ogrid, nval, ngrid):
     return oval
 
 
+def _scatter_volume_average(nodes_x, nodes_y, nodes_z, values, new_nodes_x,
+                            new_nodes_y, new_nodes_z, new_values, new_vol):
+    """Conservative volume-average regridding of cell properties.
+
+    Vectorized scatter-add version of the reference's numba kernel
+    (emg3d/maps.py:555-616; discretize/Capriotti algorithm).  The result is
+    added to ``new_values`` and normalized by the new cell volumes.
+    """
+    wx, ixi, ixo = maps._volume_average_weights(nodes_x, new_nodes_x)
+    wy, iyi, iyo = maps._volume_average_weights(nodes_y, new_nodes_y)
+    wz, izi, izo = maps._volume_average_weights(nodes_z, new_nodes_z)
+
+    # Outer product of contributions; scatter-add into the output cells.
+    contrib = (wx[:, None, None] * wy[None, :, None] * wz[None, None, :]
+               * values[np.ix_(ixi, iyi, izi)])
+    np.add.at(new_values, np.ix_(ixo, iyo, izo), contrib)
+    new_values /= new_vol
+    return new_values
+
+
 # --- The grid pairs: (mesh, computational grid) ---------------------------
 
 def _mesh(widths, origin):
@@ -128,6 +155,25 @@ def test_equals_scatter(pair, ncomp):
     scale = np.abs(old).max()
     assert scale > 0
     assert np.abs(new - old).max() <= 1e-13 * scale
+
+
+@pytest.mark.parametrize('order', ['C', 'F'])
+@pytest.mark.parametrize('pair', list(PAIRS))
+def test_forward_equals_scatter(pair, order):
+    ogrid, ngrid = PAIRS[pair]
+    values = np.asarray(np.random.default_rng(6).uniform(
+        0.3, 100., ogrid.shape_cells), order=order)
+    start = np.random.default_rng(7).standard_normal(ngrid.shape_cells)
+    vol = ngrid.cell_volumes.reshape(ngrid.shape_cells, order='F')
+    nodes = (ogrid.nodes_x, ogrid.nodes_y, ogrid.nodes_z,
+             values, ngrid.nodes_x, ngrid.nodes_y, ngrid.nodes_z)
+    new_values = start.copy()
+    out = maps.interp_volume_average(*nodes, new_values, vol)
+    assert out is new_values
+    old = _scatter_volume_average(*nodes, start.copy(), vol)
+    scale = np.abs(old).max()
+    assert scale > 0
+    assert np.abs(out - old).max() <= 1e-13 * scale
 
 
 @pytest.mark.parametrize('ncomp', [1, 3])
